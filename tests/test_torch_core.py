@@ -131,7 +131,8 @@ def test_camera_matches_reference():
     jc = jcam.make_stereo_camera(300.0, 302.0, 160.0, 120.0, 0.12, **args)
     ref = jax.jit(lambda a, b, c: _camera_outputs(jcam, jc, a, b, c))(
         p_img, uvl, uvr)
-    tc = tcam.make_stereo_camera(300.0, 302.0, 160.0, 120.0, 0.12, **args)
+    tc = tcam.make_stereo_camera(300.0, 302.0, 160.0, 120.0, 0.12, **args,
+                                 device="cpu")
     port = _camera_outputs(tcam, tc, torch.from_numpy(p_img),
                            torch.from_numpy(uvl), torch.from_numpy(uvr))
     for k in ref:

@@ -7,8 +7,12 @@ without a GPU.  On the card, run it without the JAX conftest:
     python -m pytest tests/test_torch_cuda.py --noconftest -o addopts="" -m cuda
 
 Tolerances: K1 flow 0.05 px, ok identical, min_eig rtol 1e-3 (the repo's
-LK tolerances, tests/test_lk_pallas.py); the step per frame translation
-1e-3 m, yaw 1e-3 rad, inliers within 1, identical lost flags."""
+LK tolerances, tests/test_lk_pallas.py); K2 flow 2e-3 px (the xcorr
+same-formulation tolerance, tests/test_lk_pallas.py:104-106), inactive
+features bit-equal; the step per frame translation 1e-3 m, yaw 1e-3 rad,
+inliers within 1, identical lost flags."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -16,6 +20,7 @@ import torch
 
 from visfs_tpu_torch.io.sim import generate_textured_sequence
 from visfs_tpu_torch.ops.kernels import lk_level as k1
+from visfs_tpu_torch.ops.kernels import lk_xcorr as k2
 from visfs_tpu_torch.ops.lk import LKParams, build_lk_pyramid
 from visfs_tpu_torch.slam.system import System
 
@@ -29,8 +34,9 @@ def _require_gpu():
 
 @pytest.fixture(scope="module")
 def seq():
+    _require_gpu()
     return generate_textured_sequence(n_frames=6, width=160, height=120,
-                                      seed=0, speed=2.0)
+                                      seed=0, speed=2.0, device="cuda")
 
 
 @pytest.mark.parametrize("level", [0, 2])
@@ -65,7 +71,50 @@ def test_k1_cuda_kernel_matches_plain_version(seq, level):
                                   flow.cpu().numpy()[inactive])
 
 
-def test_step_on_cuda_matches_cpu(seq):
+def test_k2_cuda_kernel_matches_plain_version():
+    _require_gpu()
+    rng = np.random.default_rng(7)
+    n, a = 64, 22
+
+    def f32(x):
+        return torch.from_numpy(np.asarray(x, np.float32)).cuda()
+
+    # maps of a locally linear LK problem, b = G (target - off) + noise: most
+    # features converge in a few steps, those whose target lies beyond the
+    # clamped offsets run to the cap
+    g11, g22 = rng.uniform(1e3, 3e3, n), rng.uniform(1e3, 3e3, n)
+    g12 = rng.uniform(-300, 300, n)
+    det = g11 * g22 - g12 * g12
+    ex = rng.uniform(-2, 23, (n, 1, 1)) - np.arange(a)[None, None, :]
+    ey = rng.uniform(-2, 23, (n, 1, 1)) - np.arange(a)[None, :, None]
+    cc1, cc2 = rng.normal(0, 500, n), rng.normal(0, 500, n)
+    C1 = cc1[:, None, None] - (g11[:, None, None] * ex
+                               + g12[:, None, None] * ey)
+    C2 = cc2[:, None, None] - (g12[:, None, None] * ex
+                               + g22[:, None, None] * ey)
+    base = rng.uniform(8, 12, (n, 2))
+    args = (f32(C1 + rng.normal(0, 20, C1.shape)),
+            f32(C2 + rng.normal(0, 20, C2.shape)), f32(cc1), f32(cc2),
+            f32(g22 / det), f32(-g12 / det), f32(g11 / det), f32(base[:, 0]),
+            f32(base[:, 1]), f32(rng.normal(0, 1, (n, 2))),
+            torch.from_numpy(rng.uniform(size=n) > 0.2).cuda())
+    kw = dict(iterations=30, eps=0.01, max_off=float(a - 2))
+    before = k2.LAUNCHES
+    fk = k2.lk_xcorr_iterate(*args, **kw)
+    fp, steps = k2.xcorr_steps(*args, **kw)
+    torch.cuda.synchronize()
+    assert k2.LAUNCHES == before + 1
+    steps = steps.cpu().numpy()
+    assert (steps < 30).sum() > n // 2 and (steps == 30).any()
+    np.testing.assert_allclose(fk.cpu().numpy(), fp.cpu().numpy(), atol=2e-3)
+    inactive = ~args[10].cpu().numpy()
+    np.testing.assert_array_equal(fk.cpu().numpy()[inactive],
+                                  args[9].cpu().numpy()[inactive])
+
+
+@pytest.mark.parametrize("lk", [{}, dict(backend="jnp", iter_mode="xcorr")],
+                         ids=["k1", "xcorr"])
+def test_step_on_cuda_matches_cpu(seq, lk):
     _require_gpu()
     params = {"Tracker/MaxFeatures": 40, "Tracker/MinDistance": 12,
               "Tracker/QualityLevel": 0.05, "Optimizer/Iterations": 20,
@@ -74,6 +123,7 @@ def test_step_on_cuda_matches_cpu(seq):
     outs = {}
     for dev in ("cuda", "cpu"):
         s = System(params, device=dev)
+        s.lk_params = dataclasses.replace(s.lk_params, **lk)
         s.init(float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy),
                float(cam.baseline), width=cam.width, height=cam.height)
         outs[dev] = s.run_sequence(seq.stamps, seq.left, seq.right)

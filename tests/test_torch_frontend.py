@@ -29,7 +29,7 @@ SIM_KW = dict(n_frames=6, width=160, height=120, motion="square", seed=0,
 @pytest.fixture(scope="module")
 def sims():
     return (jsim.generate_textured_sequence(**SIM_KW),
-            tsim.generate_textured_sequence(**SIM_KW))
+            tsim.generate_textured_sequence(**SIM_KW, device="cpu"))
 
 
 def test_sim_poses_and_odometry_equal(sims):
@@ -52,8 +52,10 @@ def test_sim_pixels_match_after_quantisation(sims, side):
 
 def test_sim_cache_and_ate(tmp_path):
     kw = dict(SIM_KW, n_frames=3)
-    first = tsim.cached_textured_sequence(cache_dir=str(tmp_path), **kw)
-    again = tsim.cached_textured_sequence(cache_dir=str(tmp_path), **kw)
+    first = tsim.cached_textured_sequence(cache_dir=str(tmp_path), **kw,
+                                          device="cpu")
+    again = tsim.cached_textured_sequence(cache_dir=str(tmp_path), **kw,
+                                          device="cpu")
     assert len(list(tmp_path.iterdir())) == 1
     np.testing.assert_array_equal(first.left, again.left)
     assert np.all(first.left == np.floor(first.left))  # 8-bit values

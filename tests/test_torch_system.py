@@ -205,7 +205,12 @@ def test_system_cuda_raises_without_cuda():
 
 
 def test_system_requires_a_device():
-    with pytest.raises(TypeError):
+    # the device defaults to "cuda": without a card that raises, and with
+    # one the System lives there; "cpu" is only ever asked for
+    if torch.cuda.is_available():
+        assert System(PARAMS).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
         System(PARAMS)
 
 

@@ -49,7 +49,7 @@ class StereoCamera(NamedTuple):
 def make_stereo_camera(fx, fy, cx, cy, baseline, *, fxr=None, fyr=None,
                        cxr=None, cyr=None, t_camera_to_robot=None, width=640,
                        height=480, dtype=torch.float32,
-                       device="cpu") -> StereoCamera:
+                       device="cuda") -> StereoCamera:
     """Build a StereoCamera on ``device``; mirrors System::init."""
     def f(v):
         return torch.as_tensor(v, dtype=dtype).to(device)

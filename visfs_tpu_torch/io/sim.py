@@ -32,7 +32,7 @@ class SimSequence(NamedTuple):
     camera: StereoCamera
 
 
-def default_camera(width=320, height=240, device="cpu"):
+def default_camera(width=320, height=240, device="cuda"):
     return make_stereo_camera(
         fx=0.8 * width, fy=0.8 * width, cx=width / 2, cy=height / 2,
         baseline=0.12, width=width, height=height, device=device)
@@ -283,11 +283,12 @@ def generate_textured_sequence(
     odom_drift_yaw: float = 0.002, room: tuple = (-3.0, 18.0, -8.0, 8.0),
     z_floor: float = -0.6, z_ceil: float = 1.4, n_pillars: int = 6,
     pixel_noise: float = 2.0, exposure_drift: float = 0.02,
-    loops: float = 1.0, speed: float | None = None, device="cpu",
+    loops: float = 1.0, speed: float | None = None, device="cuda",
 ) -> SimSequence:
-    """Render a textured closed-room sequence (ray cast on ``device``)."""
+    """Render a textured closed-room sequence (ray cast on ``device``, where
+    the returned camera lives too)."""
     rng = np.random.default_rng(seed)
-    cam = default_camera(width, height)
+    cam = default_camera(width, height, device)
     xs, ys, yaws = _trajectory(motion, n_frames, fps, room, loops, speed)
     # Odometry starts at identity: shift the world so pose 0 is the origin.
     x_off, y_off = float(xs[0]), float(ys[0])
@@ -304,7 +305,7 @@ def generate_textured_sequence(
     planes = _make_world(rng, room, z_floor, z_ceil, n_pillars,
                          np.stack([xs, ys], -1))
 
-    t_ri = cam.t_ri.numpy().astype(np.float64)
+    t_ri = cam.t_ri.cpu().numpy().astype(np.float64)
     fx, fy = float(cam.fx), float(cam.fy)
     cx, cy = float(cam.cx), float(cam.cy)
     baseline = float(cam.baseline)
@@ -348,16 +349,17 @@ _SIM_CACHE_TAG = "visfs_tpu_torch-sim-1"
 def cached_textured_sequence(cache_dir=None, **kwargs) -> SimSequence:
     """generate_textured_sequence quantized to 8 bits (as a camera emits),
     with an npz cache under ``cache_dir`` (default $VISFS_SIM_CACHE or the
-    temp dir).  ``device`` selects where the ray cast runs and is not part
-    of the cache key."""
-    device = kwargs.pop("device", "cpu")
+    temp dir).  ``device`` (default "cuda") selects where the ray cast runs
+    and the camera lives, and is not part of the cache key."""
+    device = kwargs.pop("device", "cuda")
     key = json.dumps({**kwargs, "_tag": _SIM_CACHE_TAG}, sort_keys=True)
     digest = hashlib.sha256(key.encode()).hexdigest()[:20]
     cache_dir = cache_dir or os.environ.get(
         "VISFS_SIM_CACHE", os.path.join(tempfile.gettempdir(),
                                         "visfs_sim_cache"))
     path = os.path.join(cache_dir, f"torch_seq_{digest}.npz")
-    cam = default_camera(kwargs.get("width", 320), kwargs.get("height", 240))
+    cam = default_camera(kwargs.get("width", 320), kwargs.get("height", 240),
+                         device)
     if os.path.exists(path):
         with np.load(path, allow_pickle=False) as z:
             return SimSequence(

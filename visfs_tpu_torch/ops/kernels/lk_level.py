@@ -132,6 +132,18 @@ def lk_level_reference(img_from, img_to, gx, gy, pts, flow_in, active, *,
                        min_eig_threshold: float):
     """Plain PyTorch version of K1: the same function with the early exit
     replaced by ``iterations`` masked steps."""
+    return level_steps(img_from, img_to, gx, gy, pts, flow_in, active,
+                       win=win, iterations=iterations, eps=eps,
+                       min_eig_threshold=min_eig_threshold)[:3]
+
+
+def level_steps(img_from, img_to, gx, gy, pts, flow_in, active, *, win: int,
+                iterations: int, eps: float, min_eig_threshold: float,
+                trail: list | None = None):
+    """The plain level: (flow, ok, min_eig, steps [N] int — the iterations
+    each feature ran before it froze or met the cap).  A ``trail`` list
+    receives, for every step, the ``to``-patch centres (cx [N], cy [N]) and
+    the features that sampled there (run [N] bool)."""
     px, py = pts[:, 0], pts[:, 1]
     patch_i = _bilinear_patches(img_from, px, py, win)
     pgx = _bilinear_patches(gx, px, py, win)
@@ -153,9 +165,13 @@ def lk_level_reference(img_from, img_to, gx, gy, pts, flow_in, active, *,
     run = run0
     flow = flow_in
     eps_sq = float(eps) * float(eps)
+    steps = torch.zeros(run.shape, dtype=torch.int64, device=run.device)
     for _ in range(iterations):
-        patch_j = _bilinear_patches(img_to, px + flow[:, 0], py + flow[:, 1],
-                                    win)
+        steps = steps + run.to(torch.int64)
+        cx, cy = px + flow[:, 0], py + flow[:, 1]
+        if trail is not None:
+            trail.append((cx, cy, run))
+        patch_j = _bilinear_patches(img_to, cx, cy, win)
         diff = patch_i - patch_j
         b1 = torch.sum(diff * pgx, dim=(1, 2))
         b2 = torch.sum(diff * pgy, dim=(1, 2))
@@ -165,4 +181,4 @@ def lk_level_reference(img_from, img_to, gx, gy, pts, flow_in, active, *,
         flow = torch.where(run[:, None], flow + step, flow)
         run = run & ((dx * dx + dy * dy) >= eps_sq)
     flow = torch.where(run0[:, None], flow, flow_in)
-    return flow, ok_g.to(torch.float32), min_eig
+    return flow, ok_g.to(torch.float32), min_eig, steps

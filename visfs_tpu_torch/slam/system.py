@@ -19,8 +19,7 @@ from typing import Optional
 
 import torch
 
-from visfs_tpu.config import VISFSConfig, config_from_parameters
-
+from ..config import VISFSConfig, config_from_parameters
 from ..core.camera import StereoCamera, make_stereo_camera
 from ..core import prng
 from ..core.lie import mat_to_quat, mat_to_xyzrpy, se3_matrix
@@ -158,12 +157,17 @@ def _outputs_to_numpy(outs):
 class System:
     """Host-side engine owning the device state (reference System.h API).
 
-    ``device`` is required: "cuda" runs the step on the card through the
+    ``device`` "cuda" (the default) runs the step on the card through the
     CUDA kernels, "cpu" through their plain versions.  A CUDA device on a
     machine without CUDA raises; nothing falls back to the CPU.
+
+    ``lk_params`` comes from the config with ``backend="pallas"`` (K1 per
+    level); replace it before ``init`` to run another LK formulation, e.g.
+    ``dataclasses.replace(s.lk_params, backend="jnp", iter_mode="xcorr")``
+    for the correlation-form level with K2.
     """
 
-    def __init__(self, parameters=None, *, device,
+    def __init__(self, parameters=None, *, device="cuda",
                  feature_capacity_factor: int = 3, seed: int = 0,
                  profile_stages: bool = False):
         if profile_stages:
