@@ -8,13 +8,18 @@ Phases (each prints its lines; any failure exits non-zero without the final
                 power limit, turn TF32 off;
   2. build    — compile the CUDA kernels from visfs_tpu_torch/csrc, one nvcc
                 per source, all started together; ptxas registers/spills;
-  3. k1       — the LK level kernel (K1) against its plain PyTorch version
-                on the four pyramid levels of a 640x480 textured pair,
-                N = 120 and N = 240 features: flow within 0.05 px, ok
-                identical, min_eig rtol 1e-3; the kernel's device time per
+  3. k1       — the LK kernel (K1) against its plain PyTorch versions on
+                a 640x480 textured pair, N = 120 and N = 240 features:
+                its one-level entry on each of the four pyramid levels
+                (flow within 0.05 px, ok identical, min_eig rtol 1e-3),
+                and its pyramid entry, one bidirectional track over all
+                levels per launch (points within 0.05 px, status
+                identical, err rtol 1e-3); the kernel's device time per
                 launch (median of a torch.profiler trace), the CUDA-event
                 time of a wrapper call and of the plain version, and the
-                bound of each launch;
+                bound of each launch; and the device time of one step
+                (the one-level entry at level 0 with eps = 0, run for 1
+                and for 30 steps);
   4. k2       — the xcorr loop kernel (K2) against its plain version on the
                 maps and scalars of the real jnp level setup of the same
                 pair and points, all four levels: flow within 2e-3 px,
@@ -23,11 +28,14 @@ Phases (each prints its lines; any failure exits non-zero without the final
   5. main     — the stereo VO main path: System(bench parameters,
                 device="cuda") over the 300-frame 640x480 textured square
                 loop rendered on the card, frames 0-1 then a timed loop over
-                frames 2-299; gate ATE <= 0.15 m, 0 lost, 16 K1 and 0 K2
-                launches per frame, 0 host syncs; fps and a stage split;
+                frames 2-299; gate ATE <= 0.15 m, 0 lost, 2 launches of
+                K1's pyramid entry (the temporal and the stereo track), 0
+                of its one-level entry and 0 of K2 per frame, 0 host
+                syncs; fps and a stage split;
   6. xcorr    — the same loop with lk_params backend="jnp",
                 iter_mode="xcorr" (the jnp level, loop in K2): the same
-                gates with 16 K2 and 0 K1 launches per frame;
+                gates with 16 K2 and 0 K1 launches (either entry) per
+                frame;
   7. small    — the System on "cuda" and "cpu" over 8 frames at 160x120, at
                 K1 (the System's default), xcorr, and the reference System's
                 own LK configuration (backend="jnp", direct iteration): per
@@ -37,13 +45,20 @@ The kernels JSON line, the nvidia-smi line and the final
 {"ok": true, "device": ...} line close the output.
 
 A kernel's "ms" (device time), "plain_ms" and "bound_ms" in the kernels
-line are one frame's worth of its launches: the (N, level) cases of its
-phase, each twice (the forward and reverse pass at that size), 16 launches
-in all.  A bound counts the bytes the launch's inputs need once each: the
-pixels of the patches K1 samples and the map taps K2 looks up along the
-plain version's trajectory on the same inputs (not the whole planes or
-maps), the vectors and the outputs; and the operations of the steps the
-features ran.
+line are one frame's worth of its launches: for K1, the main path's two
+pyramid launches, one at N = 120 plus one at N = 240; for K2 the (N,
+level) cases of its phase, each twice (the forward and reverse pass at
+that size), 16 launches in all.  The k1 lines also give one frame's worth
+of K1's one-level entry (16 launches).  A bound counts the bytes the
+launch's inputs need once each: the pixels of the patches K1 samples and
+the map taps K2 looks up along the plain version's trajectory on the same
+inputs (not the whole planes or maps), the vectors and the outputs; and the
+operations of the steps the features ran.  A pyramid launch reads six
+planes a level (from, to and the gradients of both pyramids): its bound
+counts each plane's pixels once, the union of the patches that both
+directions read in it, the setup of the features whose level result the
+track uses (the active ones, and every feature at the forward level 0,
+whose min_eig is err), the steps, and each vector and output once.
 """
 
 import concurrent.futures
@@ -157,7 +172,9 @@ def timed_kernel(label, call, kernel):
 
 
 def nbytes(*tensors):
-    return sum(t.numel() * t.element_size() for t in tensors)
+    """The bytes of the tensors, each distinct one once."""
+    distinct = {t.data_ptr(): t for t in tensors}
+    return sum(t.numel() * t.element_size() for t in distinct.values())
 
 
 def window_pixels(shape, cx, cy, win, keep):
@@ -200,10 +217,10 @@ def bound(n_bytes, flops):
     return n_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
 
 
-def frame_totals(rows):
-    """One frame's sums over a phase's rows (each case twice) and which
-    bound dominates them."""
-    tot = {k: 2 * sum(r[k] for r in rows)
+def frame_totals(rows, times):
+    """One frame's sums over a phase's rows (each case ``times`` times) and
+    which bound dominates them."""
+    tot = {k: times * sum(r[k] for r in rows)
            for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bytes_ms",
                      "ops_ms")}
     tot["bound_by"] = ("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
@@ -239,15 +256,49 @@ def level_inputs(seq):
     return params, pyr0, pyr1, det.points
 
 
+def k1_work(records, win):
+    """(bytes, FLOPs) of K1 level runs.  A record is one level in one
+    direction: planes (from, to, gx, gy) [H, W], pts [N, 2] at the level's
+    scale, setup [N] bool (the features whose G the run needs), steps [N]
+    and the step trail of level_steps.  Bytes: per distinct plane, the
+    union of the pixels that the records' patches read in it (the setup
+    patches in from, gx and gy; the step patches in to).  FLOPs: the setup
+    of the setup features and the steps the features ran."""
+    import torch
+
+    masks = {}
+
+    def read(plane, mask):
+        key = plane.data_ptr()
+        masks[key] = masks[key] | mask if key in masks else mask
+
+    area = win * win
+    flops = 0
+    for r in records:
+        img_from, img_to, gx, gy = r["planes"]
+        shape = img_from.shape
+        src = window_pixels(shape, r["pts"][:, 0], r["pts"][:, 1], win,
+                            r["setup"])
+        for plane in (img_from, gx, gy):
+            read(plane, src)
+        dst = torch.zeros(shape, dtype=torch.bool, device=src.device)
+        for cx, cy, run in r["trail"]:
+            dst |= window_pixels(shape, cx, cy, win, run)
+        read(img_to, dst)
+        flops += (int(r["setup"].sum()) * area * K1_SETUP_FLOPS_PER_SAMPLE
+                  + int(r["steps"].sum()) * area * K1_STEP_FLOPS_PER_SAMPLE)
+    return 4 * sum(int(m.sum()) for m in masks.values()), flops
+
+
 def phase_k1(seq, lk_mod):
-    """K1 against its plain version at the main path's shapes."""
+    """K1's two entries against their plain versions at the main path's
+    shapes; returns one frame's totals of the pyramid entry."""
     import torch
 
     params, pyr0, pyr1, points = level_inputs(seq)
     dev = points.device
     kw = dict(win=params.win_size, iterations=params.iterations,
               eps=params.eps, min_eig_threshold=params.min_eig_threshold)
-    area = params.win_size ** 2
     rows = []
     for n in (120, 240):
         pts = points[:n].contiguous()
@@ -275,39 +326,108 @@ def phase_k1(seq, lk_mod):
             plain_ms = cuda_time_ms(
                 lambda: lk_mod.lk_level_reference(*args, **kw), reps=5)
             n_steps = int(steps.sum())
-            # bytes: the patches' pixels of from, gx and gy (every feature:
-            # ok and min_eig are outputs), the union of the `to` patches the
-            # steps sample, the vectors and the outputs
-            shape, win = pyr0.levels[level].shape, params.win_size
-            src = window_pixels(shape, pts_l[:, 0], pts_l[:, 1], win,
-                                torch.ones(n, dtype=torch.bool, device=dev))
-            dst = torch.zeros(shape, dtype=torch.bool, device=dev)
-            for cx, cy, run in trail:
-                dst |= window_pixels(shape, cx, cy, win, run)
-            n_bytes = (4 * (3 * int(src.sum()) + int(dst.sum()))
-                       + nbytes(*args[4:], fk, okk, ek))
-            bytes_ms, ops_ms = bound(
-                n_bytes,
-                n * area * K1_SETUP_FLOPS_PER_SAMPLE
-                + n_steps * area * K1_STEP_FLOPS_PER_SAMPLE)
+            # bytes: the level's pixels (ok and min_eig are outputs for
+            # every feature, so every feature's setup counts), the vectors
+            # and the outputs
+            pix_bytes, flops = k1_work(
+                [dict(planes=args[:4], pts=pts_l, steps=steps, trail=trail,
+                      setup=torch.ones(n, dtype=torch.bool, device=dev))],
+                params.win_size)
+            n_bytes = pix_bytes + nbytes(*args[4:], fk, okk, ek)
+            bytes_ms, ops_ms = bound(n_bytes, flops)
             rows.append(dict(n=n, level=level,
                              plane=list(pyr0.levels[level].shape),
                              max_abs_err=err, ms=ms, call_ms=call_ms,
                              plain_ms=plain_ms,
                              bound_ms=max(bytes_ms, ops_ms),
                              bytes_ms=bytes_ms, ops_ms=ops_ms, bytes=n_bytes,
-                             steps=n_steps, n_ok=int(okp.sum())))
+                             steps=n_steps, max_steps=int(steps.max()),
+                             n_ok=int(okp.sum())))
             active = (okp > 0).to(torch.float32) * active
             flow = fp * 2.0 if level > 0 else fp
     for r in rows:
         print("k1 " + json.dumps(r), flush=True)
-    tot = frame_totals(rows)
-    print(f"k1: flow max|d| {tot['max_abs_err']:.3g} px over 8 (N, level) "
-          f"cases, ok identical; one frame's 16 launches: kernel "
+    tot = frame_totals(rows, 2)
+    print(f"k1 level entry: flow max|d| {tot['max_abs_err']:.3g} px over 8 "
+          f"(N, level) cases, ok identical; one frame's 16 launches: kernel "
           f"{tot['ms']:.4f} ms, calls {tot['call_ms']:.3f} ms (plain "
           f"{tot['plain_ms']:.3f} ms, bound "
           f"{tot['bound_ms']:.5f} ms by {tot['bound_by']})", flush=True)
-    return tot
+
+    # the latency of one step: the one-level entry at level 0, N = 240,
+    # with eps = 0, so that every ok feature runs exactly `iterations` steps
+    probe = (pyr0.levels[0], pyr1.levels[0], pyr0.gx[0], pyr0.gy[0],
+             (points + pyr0.pad).contiguous(),
+             torch.zeros((240, 2), dtype=torch.float32, device=dev),
+             torch.ones(240, dtype=torch.float32, device=dev))
+    lat = {}
+    for iters in (1, params.iterations):
+        skw = dict(kw, iterations=iters, eps=0.0)
+        lat[iters] = timed_kernel(
+            f"k1 step probe {iters}",
+            lambda: lk_mod.lk_level_cuda(*probe, **skw), "lk_level_kernel")[0]
+    step_us = (lat[params.iterations] - lat[1]) * 1e3 / (params.iterations - 1)
+    print(f"k1 step latency (level 0, N = 240, eps = 0): "
+          f"{lat[1] * 1e3:.2f} us at 1 step, "
+          f"{lat[params.iterations] * 1e3:.2f} us at {params.iterations}: "
+          f"{step_us:.3f} us per step", flush=True)
+
+    # the pyramid entry: one bidirectional track of N features per launch,
+    # seeded at the points themselves (as the stereo track is)
+    pkw = dict(kw, max_level=params.max_level, bidirectional=True,
+               fb_threshold=1.5)
+    pyr_rows = []
+    for n in (120, 240):
+        pts = points[:n].contiguous()
+        args = (pyr0, pyr1, pts, pts,
+                torch.ones(n, dtype=torch.bool, device=dev))
+        pk, sk, ek = lk_mod.lk_pyramid_cuda(*args, **pkw)
+        levels = []
+        pp, sp, ep = lk_mod.lk_pyramid_reference(*args, **pkw, levels=levels)
+        torch.cuda.synchronize()
+        err = float((pk - pp).abs().max())
+        if not err <= 0.05:
+            fail(f"k1 pyramid N={n}: points max|d| {err:.4g} px")
+        if not torch.equal(sk, sp):
+            fail(f"k1 pyramid N={n}: status differs in "
+                 f"{int((sk != sp).sum())} features")
+        np.testing.assert_allclose(ek.cpu().numpy(), ep.cpu().numpy(),
+                                   rtol=1e-3, atol=1e-6)
+        ms, call_ms = timed_kernel(
+            f"k1 pyramid N={n}", lambda: lk_mod.lk_pyramid_cuda(*args, **pkw),
+            "lk_pyr_kernel")
+        plain_ms = cuda_time_ms(
+            lambda: lk_mod.lk_pyramid_reference(*args, **pkw), reps=3)
+        # bytes: each plane's pixels once over both directions, the setup
+        # of the active features (and of all at the forward level 0, for
+        # err), the vectors and outputs once; max_chain_steps: the most
+        # steps one feature runs over its levels and directions, the chain
+        # of the slowest block
+        fwd0 = params.max_level
+        pix_bytes, flops = k1_work(
+            [dict(lv, setup=lv["active"] | (k == fwd0))
+             for k, lv in enumerate(levels)], params.win_size)
+        n_bytes = pix_bytes + nbytes(*args[2:], pk, sk, ek)
+        bytes_ms, ops_ms = bound(n_bytes, flops)
+        pyr_rows.append(dict(n=n, entry="pyramid", levels=len(levels),
+                             max_abs_err=err, ms=ms, call_ms=call_ms,
+                             plain_ms=plain_ms,
+                             bound_ms=max(bytes_ms, ops_ms),
+                             bytes_ms=bytes_ms, ops_ms=ops_ms, bytes=n_bytes,
+                             steps=sum(int(lv["steps"].sum())
+                                       for lv in levels),
+                             max_chain_steps=int(sum(
+                                 lv["steps"] for lv in levels).max()),
+                             n_status=int(sp.sum())))
+    for r in pyr_rows:
+        print("k1 " + json.dumps(r), flush=True)
+    ptot = frame_totals(pyr_rows, 1)
+    print(f"k1 pyramid entry: points max|d| {ptot['max_abs_err']:.3g} px at "
+          f"N = 120 and 240, status identical; one frame's 2 launches: "
+          f"kernel {ptot['ms']:.4f} ms, calls {ptot['call_ms']:.3f} ms "
+          f"(plain {ptot['plain_ms']:.3f} ms, bound {ptot['bound_ms']:.5f} ms "
+          f"by {ptot['bound_by']})", flush=True)
+    return ptot
 
 
 def phase_k2(seq, k2_mod):
@@ -366,7 +486,7 @@ def phase_k2(seq, k2_mod):
             flow = fp * 2.0 if level > 0 else fp
     for r in rows:
         print("k2 " + json.dumps(r), flush=True)
-    tot = frame_totals(rows)
+    tot = frame_totals(rows, 2)
     print(f"k2: flow max|d| {tot['max_abs_err']:.3g} px over 8 (N, level) "
           f"cases, inactive features bit-equal; one frame's 16 launches: "
           f"kernel {tot['ms']:.4f} ms, calls {tot['call_ms']:.3f} ms (plain "
@@ -375,25 +495,33 @@ def phase_k2(seq, k2_mod):
     return tot
 
 
-def phase_loop(label, seq, System, lk, expect, ate_rmse):
-    """The 300-frame bench loop on the card.  expect: {kernel module:
-    launches per frame}; every count is set to 0 just before the timed
-    loop and read just after it."""
+def start_loop(seq, System, lk):
+    """The bench loop's frames on the card and a System (bench parameters,
+    lk_params replaced by lk) stepped through frames 0-1."""
     import torch
-
-    import visfs_tpu_torch.slam.system as sysmod
 
     lefts = [torch.as_tensor(f, device="cuda") for f in seq.left]
     rights = [torch.as_tensor(f, device="cuda") for f in seq.right]
     torch.cuda.synchronize()
     sys_ = make_system(System, seq.camera, bench_params(WIDTH), "cuda", lk)
-    sys_.input_primary_sensor_data(float(seq.stamps[0]), lefts[0], rights[0])
-    sys_.input_primary_sensor_data(float(seq.stamps[1]), lefts[1], rights[1])
+    for i in range(2):
+        sys_.input_primary_sensor_data(float(seq.stamps[i]), lefts[i],
+                                       rights[i])
     sys_.drain_outputs()
     torch.cuda.synchronize()
+    return sys_, lefts, rights
 
-    # Stage probe: CUDA events and host clocks around tracker_step and the
-    # whole step of every frame (event records do not wait for the device).
+
+def timed_steps(sys_, seq, lefts, rights):
+    """Step frames 2.. of seq through sys_ under the stage probe: CUDA
+    events and host clocks around every tracker_step and the whole step of
+    every frame (event records do not wait for the device), host syncs
+    caught as warnings.  Returns (elapsed s, medians per frame, the sync
+    messages)."""
+    import torch
+
+    import visfs_tpu_torch.slam.system as sysmod
+
     trk_marks, step_marks = [], []
     tracker_step = sysmod.tracker_step
 
@@ -407,14 +535,12 @@ def phase_loop(label, seq, System, lk, expect, ate_rmse):
         return out
 
     sysmod.tracker_step = timed_tracker_step
-    for mod in expect:
-        mod.LAUNCHES = 0
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
             t0 = time.perf_counter()
-            for i in range(2, N_FRAMES):
+            for i in range(2, len(lefts)):
                 s0, s1 = (torch.cuda.Event(enable_timing=True)
                           for _ in range(2))
                 s0.record()
@@ -427,9 +553,28 @@ def phase_loop(label, seq, System, lk, expect, ate_rmse):
         elapsed = time.perf_counter() - t0
     finally:
         sysmod.tracker_step = tracker_step
-    launches = {mod: mod.LAUNCHES for mod in expect}
+    n = len(step_marks)
+    stages = dict(
+        tracker_host_ms=float(np.median([m[2] for m in trk_marks]) * 1e3),
+        tracker_device_ms=float(np.median([a.elapsed_time(b)
+                                           for a, b, _ in trk_marks])),
+        step_device_ms=float(np.median([a.elapsed_time(b)
+                                        for a, b in step_marks])),
+        frame_wall_ms=elapsed / n * 1e3)
     syncs = [str(w.message) for w in caught
              if "called a synchronizing" in str(w.message)]
+    return elapsed, stages, syncs
+
+
+def phase_loop(label, seq, System, lk, expect, ate_rmse):
+    """The 300-frame bench loop on the card.  expect: {(kernel module,
+    launch counter name): launches per frame}; every count is set to 0 just
+    before the timed loop and read just after it."""
+    sys_, lefts, rights = start_loop(seq, System, lk)
+    for mod, counter in expect:
+        setattr(mod, counter, 0)
+    elapsed, stages, syncs = timed_steps(sys_, seq, lefts, rights)
+    launches = {key: getattr(*key) for key in expect}
     outs = sys_.drain_outputs()
     n = N_FRAMES - 2
     fps = n / elapsed
@@ -438,18 +583,12 @@ def phase_loop(label, seq, System, lk, expect, ate_rmse):
         fail(f"{label}: poses not finite [{n}, 4, 4]: {est.shape}")
     ate = ate_rmse(est, seq.poses[2:2 + len(est)])
     lost = int(sum(bool(o.lost) for o in outs))
-    counts = ", ".join(f"{mod.__name__.rsplit('.', 1)[-1]} launches "
-                       f"{c} ({c / n:g}/frame)" for mod, c in launches.items())
+    counts = ", ".join(f"{mod.__name__.rsplit('.', 1)[-1]}.{counter} {c} "
+                       f"({c / n:g}/frame)"
+                       for (mod, counter), c in launches.items())
     print(f"{label}: {fps:.2f} fps over {n} frames ({elapsed:.2f} s), ATE "
           f"{ate:.4f} m, lost {lost}/{len(outs)}, {counts}, host syncs in "
           f"loop {len(syncs)}", flush=True)
-    stages = dict(
-        tracker_host_ms=float(np.median([m[2] for m in trk_marks]) * 1e3),
-        tracker_device_ms=float(np.median([a.elapsed_time(b)
-                                           for a, b, _ in trk_marks])),
-        step_device_ms=float(np.median([a.elapsed_time(b)
-                                        for a, b in step_marks])),
-        frame_wall_ms=elapsed / n * 1e3)
     print(f"{label} stages (medians per frame): " + json.dumps(stages),
           flush=True)
     for msg in sorted(set(syncs))[:5]:
@@ -460,10 +599,10 @@ def phase_loop(label, seq, System, lk, expect, ate_rmse):
         fail(f"{label}: {lost} lost frames")
     if syncs:
         fail(f"{label}: {len(syncs)} host syncs in the loop")
-    for mod, per_frame in expect.items():
-        if launches[mod] != per_frame * n:
-            fail(f"{label}: {launches[mod]} launches of {mod.__name__}, "
-                 f"expected {per_frame * n}")
+    for (mod, counter), per_frame in expect.items():
+        if launches[mod, counter] != per_frame * n:
+            fail(f"{label}: {mod.__name__}.{counter} is "
+                 f"{launches[mod, counter]}, expected {per_frame * n}")
     return launches
 
 
@@ -559,19 +698,21 @@ def main():
 
     k1_tot = phase_k1(seq, k1_mod)
     k2_tot = phase_k2(seq, k2_mod)
+    k1_pyr, k1_level, k2 = ((k1_mod, "PYR_LAUNCHES"), (k1_mod, "LAUNCHES"),
+                            (k2_mod, "LAUNCHES"))
     main_launches = phase_loop("main", seq, System, None,
-                               {k1_mod: 16, k2_mod: 0}, ate_rmse)
+                               {k1_pyr: 2, k1_level: 0, k2: 0}, ate_rmse)
     xcorr_launches = phase_loop("xcorr", seq, System, XCORR,
-                                {k1_mod: 0, k2_mod: 16}, ate_rmse)
+                                {k1_pyr: 0, k1_level: 0, k2: 16}, ate_rmse)
     phase_small(System, cached_textured_sequence, cache_dir)
 
     print(json.dumps({"kernels": [
-        kernel_entry("lk_level", "visfs_tpu_torch/csrc/lk_level.cu",
+        kernel_entry("lk_pyramid", "visfs_tpu_torch/csrc/lk_level.cu",
                      "visfs_tpu/ops/pallas/lk_kernel.py:138",
-                     main_launches[k1_mod], k1_tot),
+                     main_launches[k1_pyr], k1_tot),
         kernel_entry("lk_xcorr_iterate", "visfs_tpu_torch/csrc/lk_xcorr.cu",
                      "visfs_tpu/ops/pallas/lk_xcorr.py:96",
-                     xcorr_launches[k2_mod], k2_tot)]}), flush=True)
+                     xcorr_launches[k2], k2_tot)]}), flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

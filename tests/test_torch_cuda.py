@@ -6,8 +6,9 @@ without a GPU.  On the card, run it without the JAX conftest:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -o addopts="" -m cuda
 
-Tolerances: K1 flow 0.05 px, ok identical, min_eig rtol 1e-3 (the repo's
-LK tolerances, tests/test_lk_pallas.py); K2 flow 2e-3 px (the xcorr
+Tolerances: K1 flow (or, through its pyramid entry, points) 0.05 px, ok
+(status) identical, min_eig (err) rtol 1e-3 (the repo's LK tolerances,
+tests/test_lk_pallas.py); K2 flow 2e-3 px (the xcorr
 same-formulation tolerance, tests/test_lk_pallas.py:104-106), inactive
 features bit-equal; the step per frame translation 1e-3 m, yaw 1e-3 rad,
 inliers within 1, identical lost flags."""
@@ -69,6 +70,48 @@ def test_k1_cuda_kernel_matches_plain_version(seq, level):
     inactive = active.cpu().numpy() == 0
     np.testing.assert_array_equal(fk.cpu().numpy()[inactive],
                                   flow.cpu().numpy()[inactive])
+
+
+@pytest.fixture(scope="module")
+def bench_pair():
+    """Pyramids of frames 0 and 1 of the 640x480 bench loop and 240 GFTT
+    corners of frame 0 (chip_smoke.py's k1 inputs)."""
+    _require_gpu()
+    from visfs_tpu_torch.ops.gftt import gftt_detect
+
+    pair = generate_textured_sequence(n_frames=2, width=640, height=480,
+                                      seed=0, speed=2.0, device="cuda")
+    p = LKParams()
+    img0, img1 = (torch.from_numpy(f).cuda() for f in pair.left[:2])
+    det = gftt_detect(img0, 240, 0.01, 10)
+    assert int(det.valid.sum()) == 240
+    return build_lk_pyramid(img0, p), build_lk_pyramid(img1, p), det.points
+
+
+@pytest.mark.parametrize("n", [120, 240])
+def test_k1_pyramid_kernel_matches_plain_version(bench_pair, n):
+    _require_gpu()
+    pyr0, pyr1, points = bench_pair
+    p = LKParams()
+    pts = points[:n].contiguous()
+    rng = np.random.default_rng(n)
+    init = pts + torch.from_numpy(rng.normal(0, 1.0, (n, 2)).astype(
+        np.float32)).cuda()
+    valid = torch.from_numpy(rng.uniform(size=n) > 0.1).cuda()
+    kw = dict(win=p.win_size, max_level=p.max_level,
+              iterations=p.iterations, eps=p.eps,
+              min_eig_threshold=p.min_eig_threshold, bidirectional=True,
+              fb_threshold=1.5)
+    before = (k1.PYR_LAUNCHES, k1.LAUNCHES)
+    pk, sk, ek = k1.lk_pyramid(pyr0, pyr1, pts, init, valid, **kw)
+    pp, sp, ep = k1.lk_pyramid_reference(pyr0, pyr1, pts, init, valid, **kw)
+    torch.cuda.synchronize()
+    assert (k1.PYR_LAUNCHES, k1.LAUNCHES) == (before[0] + 1, before[1])
+    np.testing.assert_allclose(pk.cpu().numpy(), pp.cpu().numpy(), atol=0.05)
+    np.testing.assert_array_equal(sk.cpu().numpy(), sp.cpu().numpy())
+    assert int(sp.sum()) >= n // 2
+    np.testing.assert_allclose(ek.cpu().numpy(), ep.cpu().numpy(), rtol=1e-3,
+                               atol=1e-6)
 
 
 def test_k2_cuda_kernel_matches_plain_version():

@@ -5,7 +5,8 @@ Tolerances: image ops atol 1e-3 on the 0-255 scale (the reference's
 banded-matmul pyrDown sums in another order); K1's plain version against
 the Pallas kernel (interpret mode) flow atol 2e-3 px, ok equal, min_eig
 rtol 1e-4 — the same-formulation tolerance of tests/test_lk_pallas.py;
-bidirectional pyramidal LK: status equal, points atol 0.01 px.
+bidirectional pyramidal LK at backend "pallas" (the port's K1 pyramid
+entry) and "jnp" on both sides: status equal, points atol 0.01 px.
 The CUDA kernel itself runs only on a card: tests/test_torch_cuda.py."""
 
 import jax
@@ -167,10 +168,14 @@ def test_k1_cuda_request_raises_without_cuda():
         k1.build()
 
 
-# --- pyramidal bidirectional LK against the reference's Pallas backend ----
+# --- pyramidal bidirectional LK against the reference, backend for backend
 
-@pytest.fixture(scope="module")
-def bidir():
+@pytest.fixture(scope="module", params=["pallas", "jnp"])
+def bidir(request):
+    """The reference and the port at the same LKParams backend: "pallas"
+    (the reference's Pallas level in interpret mode; the port's K1 pyramid
+    entry, its plain version on the CPU) or "jnp" (the direct jnp level on
+    both sides)."""
     img0 = texture(120, 160, seed=9)
     rng = np.random.default_rng(4)
     img1 = np.roll(np.roll(img0, 3, axis=0), -4, axis=1) \
@@ -180,7 +185,7 @@ def bidir():
     init = pts + np.array([-3.0, 2.0], np.float32)
     valid = np.ones(24, bool)
     valid[::5] = False
-    jp = jlk.LKParams(backend="pallas")
+    jp = jlk.LKParams(backend=request.param)
 
     def run(a, b, p, i, v):
         return jlk.lk_track_bidirectional_pyr(
@@ -188,7 +193,7 @@ def bidir():
             jp, fb_threshold=1.5)
 
     ref = jax.jit(run)(img0, img1, pts, init, valid)
-    tp = tlk.LKParams()
+    tp = tlk.LKParams(backend=request.param)
     port = tlk.lk_track_bidirectional_pyr(
         tlk.build_lk_pyramid(torch.from_numpy(img0), tp),
         tlk.build_lk_pyramid(torch.from_numpy(img1), tp),

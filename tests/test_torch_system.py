@@ -20,6 +20,7 @@ from visfs_tpu.slam import estimator as jest
 from visfs_tpu.slam import tracker as jtrk
 from visfs_tpu.slam.state import VOState as JVOState
 from visfs_tpu.slam.system import System as JSystem
+from visfs_tpu_torch.ops import lk as tlk
 from visfs_tpu_torch.ops.lk import LKParams
 from visfs_tpu_torch.slam import estimator as t_est
 from visfs_tpu_torch.slam import tracker as ttrk
@@ -65,9 +66,21 @@ def slice_run():
         ref_outs.append(ref.output_odometry_info())
     port = System(PARAMS, device="cpu")
     _init(port, seq.camera)
-    port_outs = port.run_sequence(seq.stamps, seq.left, seq.right)
+    # the bidirectional flag of every K1 pyramid call the step makes
+    k1_calls = []
+    k1_fn = tlk.lk_pyramid
+
+    def k1_counted(*a, **kw):
+        k1_calls.append(kw["bidirectional"])
+        return k1_fn(*a, **kw)
+
+    tlk.lk_pyramid = k1_counted
+    try:
+        port_outs = port.run_sequence(seq.stamps, seq.left, seq.right)
+    finally:
+        tlk.lk_pyramid = k1_fn
     return dict(seq=seq, ref=ref, ref_outs=ref_outs, port_outs=port_outs,
-                mid_state=mid_state)
+                mid_state=mid_state, k1_calls=k1_calls)
 
 
 def _yaw(T):
@@ -96,6 +109,12 @@ def test_slice_ate_matches_reference(slice_run):
                              for o in slice_run["ref_outs"]]), gt)
     assert ate < 0.1
     assert abs(ate - ref) < 1e-3
+
+
+def test_slice_runs_two_k1_tracks_per_frame(slice_run):
+    # the temporal and the stereo track, each one bidirectional lk_pyramid
+    # call (one launch on the card); frame 0 runs its masked temporal track
+    assert slice_run["k1_calls"] == [True, True] * N_FRAMES
 
 
 def _to_jax_state(np_state):

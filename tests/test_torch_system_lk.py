@@ -65,9 +65,10 @@ def lk_slice(request):
     port = System(PARAMS, device="cpu")
     port.lk_params = dataclasses.replace(port.lk_params, **port_kw)
     _init(port, seq.camera)
-    # count the level calls of each formulation the port's step makes
+    # count the K1 track calls (lk_pyramid) and K2 level calls the port's
+    # step makes
     calls = {"k1": 0, "k2": 0}
-    k1_fn, k2_fn = tlk.lk_level, tlk.lk_xcorr_iterate
+    k1_fn, k2_fn = tlk.lk_pyramid, tlk.lk_xcorr_iterate
 
     def k1_counted(*a, **kw):
         calls["k1"] += 1
@@ -77,11 +78,11 @@ def lk_slice(request):
         calls["k2"] += 1
         return k2_fn(*a, **kw)
 
-    tlk.lk_level, tlk.lk_xcorr_iterate = k1_counted, k2_counted
+    tlk.lk_pyramid, tlk.lk_xcorr_iterate = k1_counted, k2_counted
     try:
         port_outs = port.run_sequence(seq.stamps, seq.left, seq.right)
     finally:
-        tlk.lk_level, tlk.lk_xcorr_iterate = k1_fn, k2_fn
+        tlk.lk_pyramid, tlk.lk_xcorr_iterate = k1_fn, k2_fn
     return dict(mode=mode, seq=seq, ref_outs=ref_outs, port_outs=port_outs,
                 calls=calls)
 

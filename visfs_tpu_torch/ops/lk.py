@@ -4,8 +4,10 @@ visfs_tpu.ops.lk).
 ``LKParams.backend`` chooses the level formulation as the reference does
 (``lk_track_pyr``):
 
-* ``"pallas"``: every level goes through K1 (``ops.kernels.lk_level``), the
-  port of the reference's Pallas level kernel.  ``System`` runs this
+* ``"pallas"``: K1 (``ops.kernels.lk_level``), the port of the reference's
+  Pallas level kernel; ``lk_track_pyr`` and ``lk_track_bidirectional_pyr``
+  are each one ``lk_pyramid`` call, every level and the per-feature glue
+  (and the reverse track) in one launch.  ``System`` runs this
   (``LKParams.from_config``).
 * any other backend: ``_track_level``, the reference's own jnp level — a
   (win+2)^2 setup region with bilinear tents, and a ±10 px search region of
@@ -24,12 +26,14 @@ ignored.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import torch
 
 from .image import build_pyramid, edge_pad, scharr_gradients
-from .kernels.lk_level import lk_level
+from .kernels.lk_level import (lk_pyramid, track_bidirectional,
+                                track_pyramid)
 from .kernels.lk_xcorr import lk_xcorr_iterate
 
 BACKENDS = ("jnp", "pallas", "jnp-xcorr", "pallas-xcorr")
@@ -283,38 +287,34 @@ def _track_level(img_from, img_to, grad_x, grad_y, pts_from, flow, active,
 
 # --- pyramidal tracking ------------------------------------------------------
 
+def _k1_pyramid(pyr_from, pyr_to, pts_from, pts_init, valid_mask,
+                params: LKParams, bidirectional: bool,
+                fb_threshold: float) -> LKResult:
+    return LKResult(*lk_pyramid(
+        pyr_from, pyr_to, pts_from, pts_init, valid_mask,
+        win=params.win_size, max_level=params.max_level,
+        iterations=params.iterations, eps=params.eps,
+        min_eig_threshold=params.min_eig_threshold,
+        bidirectional=bidirectional, fb_threshold=fb_threshold))
+
+
+def _jnp_track(params: LKParams):
+    """(pyr_from, pyr_to, pts_from, pts_init, valid) -> (points, status,
+    err): the pyramid glue around the jnp level."""
+    return functools.partial(
+        track_pyramid, functools.partial(_track_level, params=params),
+        win=params.win_size, max_level=params.max_level)
+
+
 def lk_track_pyr(pyr_from: LKPyramid, pyr_to: LKPyramid, pts_from, pts_init,
                  valid_mask, params: LKParams = LKParams()) -> LKResult:
     """Track pts_from (in pyr_from's image) into pyr_to's image, starting
     from pts_init; valid_mask [N] selects the features to track."""
-    h, w = pyr_from.height, pyr_from.width
-    half = params.win_size // 2
-    pad = pyr_from.pad
-    flow = (pts_init - pts_from) / (2.0 ** params.max_level)
-    ok = valid_mask
-    min_eig = torch.zeros(pts_from.shape[0], dtype=torch.float32,
-                          device=pts_from.device)
-    for level in range(params.max_level, -1, -1):
-        pts_l = (pts_from / (2.0 ** level) + pad).contiguous()
-        planes = (pyr_from.levels[level], pyr_to.levels[level],
-                  pyr_from.gx[level], pyr_from.gy[level])
-        if params.backend == "pallas":
-            flow, okf, min_eig = lk_level(
-                *planes, pts_l, flow.contiguous(),
-                ok.to(torch.float32).contiguous(), win=params.win_size,
-                iterations=params.iterations, eps=params.eps,
-                min_eig_threshold=params.min_eig_threshold)
-            ok_g = okf > 0.0
-        else:
-            flow, ok_g, min_eig = _track_level(*planes, pts_l, flow, ok,
-                                               params)
-        ok = ok & ok_g
-        if level > 0:
-            flow = flow * 2.0
-    pts_to = pts_from + flow
-    inb = ((pts_to[:, 0] >= half) & (pts_to[:, 0] < w - half)
-           & (pts_to[:, 1] >= half) & (pts_to[:, 1] < h - half))
-    return LKResult(points=pts_to, status=ok & inb & valid_mask, err=min_eig)
+    if params.backend == "pallas":
+        return _k1_pyramid(pyr_from, pyr_to, pts_from, pts_init, valid_mask,
+                           params, False, 0.0)
+    return LKResult(*_jnp_track(params)(pyr_from, pyr_to, pts_from, pts_init,
+                                        valid_mask))
 
 
 def lk_track_bidirectional_pyr(pyr_from: LKPyramid, pyr_to: LKPyramid,
@@ -322,13 +322,12 @@ def lk_track_bidirectional_pyr(pyr_from: LKPyramid, pyr_to: LKPyramid,
                                params: LKParams = LKParams(),
                                fb_threshold: float = 1.5) -> LKResult:
     """Forward LK + reverse-flow consistency gate (Tracker.cpp:260-274)."""
-    fwd = lk_track_pyr(pyr_from, pyr_to, pts_from, pts_init, valid_mask,
-                       params)
-    rev = lk_track_pyr(pyr_to, pyr_from, fwd.points, pts_from, fwd.status,
-                       params)
-    dist = torch.linalg.vector_norm(rev.points - pts_from, dim=-1)
-    status = fwd.status & rev.status & (dist <= fb_threshold)
-    return LKResult(points=fwd.points, status=status, err=fwd.err)
+    if params.backend == "pallas":
+        return _k1_pyramid(pyr_from, pyr_to, pts_from, pts_init, valid_mask,
+                           params, True, fb_threshold)
+    return LKResult(*track_bidirectional(
+        _jnp_track(params), pyr_from, pyr_to, pts_from, pts_init, valid_mask,
+        fb_threshold))
 
 
 def lk_track(img_from, img_to, pts_from, pts_init, valid_mask,
