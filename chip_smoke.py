@@ -20,22 +20,29 @@ Phases (each prints its lines; any failure exits non-zero without the final
                 bound of each launch; and the device time of one step
                 (the one-level entry at level 0 with eps = 0, run for 1
                 and for 30 steps);
-  4. k2       — the xcorr loop kernel (K2) against its plain version on the
-                maps and scalars of the real jnp level setup of the same
-                pair and points, all four levels: flow within 2e-3 px,
-                inactive features bit-equal to flow_in; times and bounds
-                as for k1;
+  4. k2       — the xcorr loop kernel (K2) against its plain versions on
+                the same pair and points: its one-level entry on the maps
+                and scalars of the real jnp level setup, all four levels
+                (flow within 2e-3 px, inactive features bit-equal to
+                flow_in), and its pyramid entry, one bidirectional track in
+                correlation form over all levels per launch, setup and maps
+                included (points within 0.01 px, status identical, err
+                rtol 1e-3); times and bounds as for k1, a probe of the
+                pyramid entry with eps = 1e9 (one step a running level:
+                the setup-plus-maps share of the launch), and the time of
+                a grouped float32 conv2d computing the level-0 maps (a
+                yardstick of the map stage; the port never calls it);
   5. main     — the stereo VO main path: System(bench parameters,
                 device="cuda") over the 300-frame 640x480 textured square
                 loop rendered on the card, frames 0-1 then a timed loop over
                 frames 2-299; gate ATE <= 0.15 m, 0 lost, 2 launches of
                 K1's pyramid entry (the temporal and the stereo track), 0
-                of its one-level entry and 0 of K2 per frame, 0 host
-                syncs; fps and a stage split;
+                of its one-level entry and 0 of either K2 entry per frame,
+                0 host syncs; fps and a stage split;
   6. xcorr    — the same loop with lk_params backend="jnp",
-                iter_mode="xcorr" (the jnp level, loop in K2): the same
-                gates with 16 K2 and 0 K1 launches (either entry) per
-                frame;
+                iter_mode="xcorr" (the jnp level in correlation form): the
+                same gates with 2 launches of K2's pyramid entry, 0 of its
+                one-level entry and 0 of either K1 entry per frame;
   7. small    — the System on "cuda" and "cpu" over 8 frames at 160x120, at
                 K1 (the System's default), xcorr, and the reference System's
                 own LK configuration (backend="jnp", direct iteration): per
@@ -45,20 +52,22 @@ The kernels JSON line, the nvidia-smi line and the final
 {"ok": true, "device": ...} line close the output.
 
 A kernel's "ms" (device time), "plain_ms" and "bound_ms" in the kernels
-line are one frame's worth of its launches: for K1, the main path's two
-pyramid launches, one at N = 120 plus one at N = 240; for K2 the (N,
-level) cases of its phase, each twice (the forward and reverse pass at
-that size), 16 launches in all.  The k1 lines also give one frame's worth
-of K1's one-level entry (16 launches).  A bound counts the bytes the
+line are one frame's worth of its launches: for each of K1 and K2, its
+path's two pyramid launches, one at N = 120 plus one at N = 240.  The k1
+and k2 lines also give one frame's worth of each one-level entry (16
+launches: the (N, level) cases, each twice).  A bound counts the bytes the
 launch's inputs need once each: the pixels of the patches K1 samples and
-the map taps K2 looks up along the plain version's trajectory on the same
-inputs (not the whole planes or maps), the vectors and the outputs; and the
-operations of the steps the features ran.  A pyramid launch reads six
-planes a level (from, to and the gradients of both pyramids): its bound
-counts each plane's pixels once, the union of the patches that both
-directions read in it, the setup of the features whose level result the
-track uses (the active ones, and every feature at the forward level 0,
-whose min_eig is err), the steps, and each vector and output once.
+the map taps K2's one-level entry looks up along the plain version's
+trajectory on the same inputs (not the whole planes or maps), the vectors
+and the outputs; and the operations of the steps the features ran.  A
+pyramid launch reads six planes a level (from, to and the gradients of both
+pyramids): its bound counts each plane's pixels once, the union of what
+both directions read in it (K1: the setup and step patches; K2: the setup
+patches and the `to` pixels under the map taps its steps look up), the
+setup of the features whose level result the track uses (the active ones,
+and every feature at the forward level 0, whose min_eig is err), K2's map
+taps that its steps look up (not the whole maps the kernel builds), the
+steps, and each vector and output once.
 """
 
 import concurrent.futures
@@ -83,10 +92,15 @@ FP32_FLOPS_PER_S = 67e12
 # bilinear sample is 4 multiplies + 3 adds; the setup samples 3 planes and
 # adds 3 products to G per sample (27), a step samples `to` and adds the
 # difference's 2 products (12).  K2: ~40 per feature-step (clamps, floors,
-# 2 four-tap lookups, G^-1 b, the update and the eps test).
+# 2 four-tap lookups, G^-1 b, the update and the eps test); its pyramid
+# entry's setup samples 3 planes and adds 5 products (G, c1, c2) per sample
+# (31), and a map tap (a, b) that a step looks up takes 2 FMAs (C1 and C2)
+# per (p, q).
 K1_SETUP_FLOPS_PER_SAMPLE = 27
 K1_STEP_FLOPS_PER_SAMPLE = 12
 K2_STEP_FLOPS = 40
+K2_SETUP_FLOPS_PER_SAMPLE = 31
+K2_MAP_FLOPS_PER_TERM = 4
 XCORR = dict(backend="jnp", iter_mode="xcorr")
 
 
@@ -177,6 +191,21 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in distinct.values())
 
 
+def block_pixels(shape, ix, iy, size, keep):
+    """The pixels of an [H, W] plane inside the size x size blocks at
+    corners (ix, iy) of the features in keep: an [H, W] bool mask."""
+    import torch
+
+    h, w = shape
+    taps = torch.arange(size, device=ix.device)
+    rows = (iy[keep][:, None] + taps)[:, :, None].expand(-1, -1, size)
+    cols = (ix[keep][:, None] + taps)[:, None, :].expand(-1, size, -1)
+    inside = (rows >= 0) & (rows < h) & (cols >= 0) & (cols < w)
+    mask = torch.zeros(shape, dtype=torch.bool, device=ix.device)
+    mask[rows[inside], cols[inside]] = True
+    return mask
+
+
 def window_pixels(shape, cx, cy, win, keep):
     """The pixels of an [H, W] plane that K1's bilinear win x win patches
     centred at (cx, cy) read for the features in keep ((win+1)^2 each, the
@@ -185,13 +214,9 @@ def window_pixels(shape, cx, cy, win, keep):
 
     h, w = shape
     half = win // 2
-    ix = torch.clamp(torch.floor(cx[keep] - half).long(), 0, w - win - 2)
-    iy = torch.clamp(torch.floor(cy[keep] - half).long(), 0, h - win - 2)
-    taps = torch.arange(win + 1, device=cx.device)
-    mask = torch.zeros(shape, dtype=torch.bool, device=cx.device)
-    mask[(iy[:, None] + taps)[:, :, None],
-         (ix[:, None] + taps)[:, None, :]] = True
-    return mask
+    ix = torch.clamp(torch.floor(cx - half).long(), 0, w - win - 2)
+    iy = torch.clamp(torch.floor(cy - half).long(), 0, h - win - 2)
+    return block_pixels(shape, ix, iy, win + 1, keep)
 
 
 def map_taps(n, a, trail):
@@ -288,6 +313,59 @@ def k1_work(records, win):
         flops += (int(r["setup"].sum()) * area * K1_SETUP_FLOPS_PER_SAMPLE
                   + int(r["steps"].sum()) * area * K1_STEP_FLOPS_PER_SAMPLE)
     return 4 * sum(int(m.sum()) for m in masks.values()), flops
+
+
+def xcorr_work(records, win):
+    """(bytes, FLOPs, running feature-levels, map taps looked up) of K2
+    pyramid level runs.  A record is one level in one direction as
+    lk_xcorr_pyramid_reference records it, with used [N] bool added (the
+    features whose G the run needs).  Bytes: per distinct plane, the union
+    of the pixels that the records read in it: the setup taps in from, gx
+    and gy ((win+1)^2 at the first nonzero tent tap), and in `to` the
+    pixels under the map taps the steps look up ((win+1)^2 at the region's
+    corner + floor(offset), inside the plane).  FLOPs: the setup of the
+    setup features, the map taps the steps look up (map_taps; not the whole
+    maps, which the kernel builds but the function does not need), the
+    steps."""
+    import torch
+
+    masks = {}
+
+    def read(plane, mask):
+        key = plane.data_ptr()
+        masks[key] = masks[key] | mask if key in masks else mask
+
+    area = win * win
+    flops = running = taps = 0
+    for r in records:
+        img_from, img_to, gx, gy = r["planes"]
+        h, w = img_from.shape
+        pts, half = r["pts"], win // 2
+        x0 = torch.clamp(pts[:, 0] - half, 0.0, w - win - 1.0)
+        y0 = torch.clamp(pts[:, 1] - half, 0.0, h - win - 1.0)
+        six = torch.clamp(torch.floor(x0).long(), 0, w - win - 2)
+        siy = torch.clamp(torch.floor(y0).long(), 0, h - win - 2)
+        src = block_pixels((h, w), six + torch.floor(x0 - six).long(),
+                           siy + torch.floor(y0 - siy).long(), win + 1,
+                           r["used"])
+        for plane in (img_from, gx, gy):
+            read(plane, src)
+        origin = r["setup"].origin.long()
+        dst = torch.zeros((h, w), dtype=torch.bool, device=src.device)
+        for offx, offy, run in r["trail"]:
+            dst |= block_pixels(
+                (h, w), origin[:, 0] + torch.floor(offx).long(),
+                origin[:, 1] + torch.floor(offy).long(), win + 1, run)
+        read(img_to, dst)
+        n_taps = int(map_taps(len(pts), r["args"][0].shape[-1],
+                              r["trail"]).sum())
+        running += int(r["args"][10].sum())
+        taps += n_taps
+        flops += (int(r["used"].sum()) * area * K2_SETUP_FLOPS_PER_SAMPLE
+                  + n_taps * area * K2_MAP_FLOPS_PER_TERM
+                  + int(r["steps"].sum()) * K2_STEP_FLOPS)
+    return (4 * sum(int(m.sum()) for m in masks.values()), flops, running,
+            taps)
 
 
 def phase_k1(seq, lk_mod):
@@ -431,7 +509,8 @@ def phase_k1(seq, lk_mod):
 
 
 def phase_k2(seq, k2_mod):
-    """K2 against its plain version on the jnp level's real inputs."""
+    """K2's two entries against their plain versions at the xcorr path's
+    shapes; returns one frame's totals of the pyramid entry."""
     import torch
 
     from visfs_tpu_torch.ops.lk import LKParams, level_setup, xcorr_inputs
@@ -487,12 +566,112 @@ def phase_k2(seq, k2_mod):
     for r in rows:
         print("k2 " + json.dumps(r), flush=True)
     tot = frame_totals(rows, 2)
-    print(f"k2: flow max|d| {tot['max_abs_err']:.3g} px over 8 (N, level) "
-          f"cases, inactive features bit-equal; one frame's 16 launches: "
-          f"kernel {tot['ms']:.4f} ms, calls {tot['call_ms']:.3f} ms (plain "
-          f"{tot['plain_ms']:.3f} ms, bound "
+    print(f"k2 level entry: flow max|d| {tot['max_abs_err']:.3g} px over 8 "
+          f"(N, level) cases, inactive features bit-equal; one frame's 16 "
+          f"launches: kernel {tot['ms']:.4f} ms, calls {tot['call_ms']:.3f} "
+          f"ms (plain {tot['plain_ms']:.3f} ms, bound "
           f"{tot['bound_ms']:.5f} ms by {tot['bound_by']})", flush=True)
-    return tot
+
+    # the pyramid entry: one bidirectional track of N features per launch,
+    # seeded at the points themselves (as the stereo track is)
+    pkw = dict(win=params.win_size, max_level=params.max_level,
+               iterations=params.iterations, eps=params.eps,
+               min_eig_threshold=params.min_eig_threshold,
+               bidirectional=True, fb_threshold=1.5)
+    pyr_rows = []
+    for n in (120, 240):
+        pts = points[:n].contiguous()
+        args = (pyr0, pyr1, pts, pts,
+                torch.ones(n, dtype=torch.bool, device=dev))
+        pk, sk, ek = k2_mod.lk_xcorr_pyramid_cuda(*args, **pkw)
+        levels = []
+        pp, sp, ep = k2_mod.lk_xcorr_pyramid_reference(*args, **pkw,
+                                                       levels=levels)
+        torch.cuda.synchronize()
+        err = float((pk - pp).abs().max())
+        if not err <= 0.01:
+            fail(f"k2 pyramid N={n}: points max|d| {err:.4g} px")
+        if not torch.equal(sk, sp):
+            fail(f"k2 pyramid N={n}: status differs in "
+                 f"{int((sk != sp).sum())} features")
+        np.testing.assert_allclose(ek.cpu().numpy(), ep.cpu().numpy(),
+                                   rtol=1e-3, atol=1e-6)
+        ms, call_ms = timed_kernel(
+            f"k2 pyramid N={n}",
+            lambda: k2_mod.lk_xcorr_pyramid_cuda(*args, **pkw),
+            "lk_xcorr_pyr_kernel")
+        probe_ms = timed_kernel(
+            f"k2 pyramid probe N={n}",
+            lambda: k2_mod.lk_xcorr_pyramid_cuda(*args, **dict(pkw, eps=1e9)),
+            "lk_xcorr_pyr_kernel")[0]
+        plain_ms = cuda_time_ms(
+            lambda: k2_mod.lk_xcorr_pyramid_reference(*args, **pkw), reps=3)
+        # bytes: each plane's pixels once over both directions, the setup
+        # of the active features (and of all at the forward level 0, for
+        # err), the vectors and outputs once
+        fwd0 = params.max_level
+        pix_bytes, flops, running, taps = xcorr_work(
+            [dict(lv, used=lv["active"] | (k == fwd0))
+             for k, lv in enumerate(levels)], params.win_size)
+        a = levels[0]["args"][0].shape[-1]
+        n_bytes = pix_bytes + nbytes(*args[2:], pk, sk, ek)
+        bytes_ms, ops_ms = bound(n_bytes, flops)
+        pyr_rows.append(dict(n=n, entry="pyramid", levels=len(levels),
+                             max_abs_err=err, ms=ms, call_ms=call_ms,
+                             plain_ms=plain_ms,
+                             bound_ms=max(bytes_ms, ops_ms),
+                             bytes_ms=bytes_ms, ops_ms=ops_ms, bytes=n_bytes,
+                             flops=flops, running_levels=running,
+                             map_taps=taps, map_entries_built=running * a * a,
+                             steps=sum(int(lv["steps"].sum())
+                                       for lv in levels),
+                             max_chain_steps=int(sum(
+                                 lv["steps"] for lv in levels).max()),
+                             probe_ms=probe_ms,
+                             setup_maps_share=probe_ms / ms,
+                             n_status=int(sp.sum())))
+    for r in pyr_rows:
+        print("k2 " + json.dumps(r), flush=True)
+    ptot = frame_totals(pyr_rows, 1)
+    print(f"k2 pyramid entry: points max|d| {ptot['max_abs_err']:.3g} px at "
+          f"N = 120 and 240, status identical; one frame's 2 launches: "
+          f"kernel {ptot['ms']:.4f} ms, calls {ptot['call_ms']:.3f} ms "
+          f"(plain {ptot['plain_ms']:.3f} ms, bound {ptot['bound_ms']:.5f} ms "
+          f"by {ptot['bound_by']}); with eps = 1e9 (setup and maps, one step "
+          f"a running level) "
+          f"{sum(r['probe_ms'] for r in pyr_rows):.4f} ms; the steps look up "
+          f"{sum(r['map_taps'] for r in pyr_rows)} of the "
+          f"{sum(r['map_entries_built'] for r in pyr_rows)} map entries "
+          f"built", flush=True)
+    maps_yardstick(levels[fwd0], params.win_size)  # the N = 240 track's
+    return ptot
+
+
+def maps_yardstick(level, win):
+    """Time one grouped float32 conv2d (TF32 off) that computes the maps of
+    one level: the forward level 0's regions [1, N, R, R] against the (gx,
+    gy) patches [2N, 1, win, win] of the same N = 240 features.  A yardstick
+    of the pyramid entry's map stage; the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    from visfs_tpu_torch.ops.lk import _xcorr_maps
+
+    s = level["setup"]
+    n = s.region.shape[0]
+    weight = torch.stack([s.gx, s.gy], dim=1).reshape(2 * n, 1, win, win)
+    region = s.region[None].contiguous()
+    out = F.conv2d(region, weight, groups=n)[0]  # [2N, A, A]
+    c1, c2 = _xcorr_maps(s.region, s.gx, s.gy, win)
+    diff = float(torch.maximum((out[0::2] - c1).abs().max(),
+                               (out[1::2] - c2).abs().max()))
+    ms = cuda_time_ms(lambda: F.conv2d(region, weight, groups=n))
+    print(f"k2 map stage yardstick: grouped conv2d (cudnn.allow_tf32 "
+          f"{torch.backends.cudnn.allow_tf32}) of {n} regions "
+          f"{list(s.region.shape[1:])} against 2 x {n} patches "
+          f"[{win}, {win}] -> maps {list(c1.shape)} x 2: {ms * 1e3:.2f} us "
+          f"per call (CUDA events), max|d| {diff:.3g} from _xcorr_maps "
+          f"(largest entry {float(c1.abs().max()):.3g})", flush=True)
 
 
 def start_loop(seq, System, lk):
@@ -698,21 +877,24 @@ def main():
 
     k1_tot = phase_k1(seq, k1_mod)
     k2_tot = phase_k2(seq, k2_mod)
-    k1_pyr, k1_level, k2 = ((k1_mod, "PYR_LAUNCHES"), (k1_mod, "LAUNCHES"),
-                            (k2_mod, "LAUNCHES"))
-    main_launches = phase_loop("main", seq, System, None,
-                               {k1_pyr: 2, k1_level: 0, k2: 0}, ate_rmse)
-    xcorr_launches = phase_loop("xcorr", seq, System, XCORR,
-                                {k1_pyr: 0, k1_level: 0, k2: 16}, ate_rmse)
+    k1_pyr, k1_level, k2_pyr, k2_level = (
+        (k1_mod, "PYR_LAUNCHES"), (k1_mod, "LAUNCHES"),
+        (k2_mod, "PYR_LAUNCHES"), (k2_mod, "LAUNCHES"))
+    main_launches = phase_loop(
+        "main", seq, System, None,
+        {k1_pyr: 2, k1_level: 0, k2_pyr: 0, k2_level: 0}, ate_rmse)
+    xcorr_launches = phase_loop(
+        "xcorr", seq, System, XCORR,
+        {k1_pyr: 0, k1_level: 0, k2_pyr: 2, k2_level: 0}, ate_rmse)
     phase_small(System, cached_textured_sequence, cache_dir)
 
     print(json.dumps({"kernels": [
         kernel_entry("lk_pyramid", "visfs_tpu_torch/csrc/lk_level.cu",
                      "visfs_tpu/ops/pallas/lk_kernel.py:138",
                      main_launches[k1_pyr], k1_tot),
-        kernel_entry("lk_xcorr_iterate", "visfs_tpu_torch/csrc/lk_xcorr.cu",
+        kernel_entry("lk_xcorr_pyramid", "visfs_tpu_torch/csrc/lk_xcorr.cu",
                      "visfs_tpu/ops/pallas/lk_xcorr.py:96",
-                     xcorr_launches[k2], k2_tot)]}), flush=True)
+                     xcorr_launches[k2_pyr], k2_tot)]}), flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

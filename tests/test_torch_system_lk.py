@@ -1,7 +1,8 @@
 """The slice through the jnp LK level: visfs_tpu_torch's System against
 visfs_tpu's at the reference System's own LK configuration (the direct
 iteration, LKParams() with no replacement) and in correlation form
-(iter_mode="xcorr", whose loop is K2 in the port).
+(iter_mode="xcorr", whose tracks are each one call of K2's pyramid entry in
+the port).
 
 Both engines get the same 8 frames at 160x120 with tests/test_torch_system.py's
 parameters and tolerances: per frame translation 1e-3 m, yaw 1e-3 rad,
@@ -65,24 +66,27 @@ def lk_slice(request):
     port = System(PARAMS, device="cpu")
     port.lk_params = dataclasses.replace(port.lk_params, **port_kw)
     _init(port, seq.camera)
-    # count the K1 track calls (lk_pyramid) and K2 level calls the port's
+    # count the K1 track calls (lk_pyramid), K2 track calls
+    # (lk_xcorr_pyramid) and K2 level calls (lk_xcorr_iterate) the port's
     # step makes
-    calls = {"k1": 0, "k2": 0}
-    k1_fn, k2_fn = tlk.lk_pyramid, tlk.lk_xcorr_iterate
+    names = {"k1": "lk_pyramid", "k2_pyr": "lk_xcorr_pyramid",
+             "k2": "lk_xcorr_iterate"}
+    calls = dict.fromkeys(names, 0)
+    fns = {key: getattr(tlk, name) for key, name in names.items()}
 
-    def k1_counted(*a, **kw):
-        calls["k1"] += 1
-        return k1_fn(*a, **kw)
+    def counted(key):
+        def call(*a, **kw):
+            calls[key] += 1
+            return fns[key](*a, **kw)
+        return call
 
-    def k2_counted(*a, **kw):
-        calls["k2"] += 1
-        return k2_fn(*a, **kw)
-
-    tlk.lk_pyramid, tlk.lk_xcorr_iterate = k1_counted, k2_counted
+    for key, name in names.items():
+        setattr(tlk, name, counted(key))
     try:
         port_outs = port.run_sequence(seq.stamps, seq.left, seq.right)
     finally:
-        tlk.lk_pyramid, tlk.lk_xcorr_iterate = k1_fn, k2_fn
+        for key, name in names.items():
+            setattr(tlk, name, fns[key])
     return dict(mode=mode, seq=seq, ref_outs=ref_outs, port_outs=port_outs,
                 calls=calls)
 
@@ -113,11 +117,15 @@ def test_lk_slice_ate_and_level_calls(lk_slice):
                              for o in lk_slice["ref_outs"]]), gt)
     assert ate < 0.1
     assert abs(ate - ref) < 1e-3
-    # every frame runs 4 LK passes x 4 levels (the step has no branch on
-    # data, so frame 0 runs its masked temporal passes too); K1 never runs
+    # every frame runs 2 LK tracks, the temporal and the stereo one, each
+    # bidirectional (the step has no branch on data, so frame 0 runs its
+    # masked temporal track too); at xcorr each is one call of K2's pyramid
+    # entry (4 levels x 2 directions), the direct loop calls neither K2
+    # entry; K1 never runs
     assert lk_slice["calls"]["k1"] == 0
-    assert lk_slice["calls"]["k2"] == (
-        16 * N_FRAMES if lk_slice["mode"] == "xcorr" else 0)
+    assert lk_slice["calls"]["k2"] == 0
+    assert lk_slice["calls"]["k2_pyr"] == (
+        2 * N_FRAMES if lk_slice["mode"] == "xcorr" else 0)
 
 
 # --- the port stands alone --------------------------------------------------

@@ -29,13 +29,11 @@ import functools
 import torch
 
 from ._build import load_library
+from .pyramid import (MAX_LEVELS, PYR_ARGTYPES, check_pyr, check_tensors,
+                      launch_pyr, track_bidirectional, track_pyramid)
 
 LAUNCHES = 0
 PYR_LAUNCHES = 0
-# Pyramid levels one lk_pyramid call takes (the kernel's parameter struct).
-MAX_LEVELS = 5
-# Largest window the kernel takes.
-MAX_WIN = 32
 
 _LIB_NAME = "visfs_lk_level"
 _SOURCES = ("lk_level.cu",)
@@ -54,28 +52,15 @@ def build() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     fn = lib.visfs_lk_pyr
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] + [
-            ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
-            ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_float,
-            ctypes.c_void_p]
+        fn.argtypes = PYR_ARGTYPES
         fn.restype = ctypes.c_int
     return lib
 
 
-def _check_tensors(where, tensors, dev):
-    for t in tensors:
-        if t.device != dev:
-            raise ValueError(f"{where}: all tensors must be on one device")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{where}: expected float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{where}: tensors must be contiguous")
-
-
 def _check(img_from, img_to, gx, gy, pts, flow_in, active):
     planes = (img_from, img_to, gx, gy)
-    _check_tensors("lk_level", planes + (pts, flow_in, active),
-                   img_from.device)
+    check_tensors("lk_level", planes + (pts, flow_in, active),
+                  img_from.device)
     if img_from.dim() != 2 or any(p.shape != img_from.shape for p in planes):
         raise ValueError("lk_level: planes must share one [H, W] shape")
     n = pts.shape[0]
@@ -208,60 +193,10 @@ def level_steps(img_from, img_to, gx, gy, pts, flow_in, active, *, win: int,
     flow = torch.where(run0[:, None], flow, flow_in)
     return flow, ok_g.to(torch.float32), min_eig, steps
 
-
 # --- the pyramid entry --------------------------------------------------------
 #
-# A pyramid argument is an ops.lk.LKPyramid (levels, gx, gy: per level the
-# padded plane and its gradients; height, width: the unpadded level-0 size;
-# pad: the border padding).
-
-def _pyr_planes(pyr_from, pyr_to, max_level: int, bidirectional: bool):
-    """Per level, the planes the track reads: from, to, gx/gy of `from`,
-    and with ``bidirectional`` gx/gy of `to` (the reverse track's)."""
-    planes = []
-    for level in range(max_level + 1):
-        p = [pyr_from.levels[level], pyr_to.levels[level],
-             pyr_from.gx[level], pyr_from.gy[level]]
-        if bidirectional:
-            p += [pyr_to.gx[level], pyr_to.gy[level]]
-        planes.append(p)
-    return planes
-
-
-def _check_pyr(pyr_from, pyr_to, pts_from, pts_init, valid, win: int,
-               max_level: int, bidirectional: bool):
-    if not 0 <= max_level < MAX_LEVELS:
-        raise ValueError(f"lk_pyramid: max_level {max_level} outside "
-                         f"[0, {MAX_LEVELS - 1}]")
-    if not 1 <= win <= MAX_WIN:
-        raise ValueError(f"lk_pyramid: win {win} outside [1, {MAX_WIN}]")
-    for pyr in (pyr_from, pyr_to):
-        if len(pyr.levels) <= max_level:
-            raise ValueError(f"lk_pyramid: a pyramid of {len(pyr.levels)} "
-                             f"levels has no level {max_level}")
-    if (pyr_from.height, pyr_from.width, pyr_from.pad) != (
-            pyr_to.height, pyr_to.width, pyr_to.pad):
-        raise ValueError("lk_pyramid: the pyramids differ in size or pad")
-    dev = pts_from.device
-    planes = _pyr_planes(pyr_from, pyr_to, max_level, bidirectional)
-    _check_tensors("lk_pyramid", [t for p in planes for t in p]
-                   + [pts_from, pts_init], dev)
-    for p in planes:
-        if p[0].dim() != 2 or any(t.shape != p[0].shape for t in p):
-            raise ValueError("lk_pyramid: a level's planes must share one "
-                             "[H, W] shape")
-        if min(p[0].shape) < win + 2:
-            raise ValueError(f"lk_pyramid: a {tuple(p[0].shape)} plane is "
-                             f"narrower than win + 2 = {win + 2}")
-    n = pts_from.shape[0]
-    if pts_from.shape != (n, 2) or pts_init.shape != (n, 2) \
-            or valid.shape != (n,):
-        raise ValueError("lk_pyramid: pts_from/pts_init [N, 2], valid [N]")
-    if valid.device != dev or valid.dtype != torch.bool \
-            or not valid.is_contiguous():
-        raise TypeError("lk_pyramid: valid must be a contiguous bool tensor "
-                        "on the points' device")
-
+# The checks, the launch and the glue are those of ``pyramid``, shared with
+# K2's pyramid entry; MAX_LEVELS is the levels one call takes.
 
 def lk_pyramid(pyr_from, pyr_to, pts_from, pts_init, valid, *, win: int,
                max_level: int, iterations: int, eps: float,
@@ -278,8 +213,8 @@ def lk_pyramid(pyr_from, pyr_to, pts_from, pts_init, valid, *, win: int,
     if kind == "cuda":  # checks its inputs itself (once: the tracker's path)
         return lk_pyramid_cuda(pyr_from, pyr_to, pts_from, pts_init, valid,
                                **kw)
-    _check_pyr(pyr_from, pyr_to, pts_from, pts_init, valid, win, max_level,
-               bidirectional)
+    check_pyr(pyr_from, pyr_to, pts_from, pts_init, valid, win, max_level,
+              bidirectional, "lk_pyramid")
     if kind == "cpu":
         return lk_pyramid_reference(pyr_from, pyr_to, pts_from, pts_init,
                                     valid, **kw)
@@ -293,75 +228,13 @@ def lk_pyramid_cuda(pyr_from, pyr_to, pts_from, pts_init, valid, *,
     """Launch the pyramid entry (raises when CUDA is absent or the launch
     fails)."""
     global PYR_LAUNCHES
-    lib = build()
-    if pts_from.device.type != "cuda":
-        raise ValueError("lk_pyramid_cuda: tensors must be on a CUDA device")
-    _check_pyr(pyr_from, pyr_to, pts_from, pts_init, valid, win, max_level,
-               bidirectional)
-    levels = max_level + 1
-    ptrs = (ctypes.c_void_p * (6 * levels))()
-    shapes = (ctypes.c_int * (2 * levels))()
-    for level, p in enumerate(_pyr_planes(pyr_from, pyr_to, max_level,
-                                          bidirectional)):
-        for k, t in enumerate(p):
-            ptrs[6 * level + k] = t.data_ptr()
-        shapes[2 * level], shapes[2 * level + 1] = p[0].shape
-    n = pts_from.shape[0]
-    points = torch.empty_like(pts_from)
-    status = torch.empty_like(valid)
-    err_out = torch.empty(n, dtype=torch.float32, device=pts_from.device)
-    stream = torch.cuda.current_stream(pts_from.device).cuda_stream
-    err = lib.visfs_lk_pyr(
-        ptrs, shapes, levels, pts_from.data_ptr(), pts_init.data_ptr(),
-        valid.data_ptr(), points.data_ptr(), status.data_ptr(),
-        err_out.data_ptr(), n, pyr_from.height, pyr_from.width, pyr_from.pad,
-        int(win), int(iterations), float(eps) * float(eps),
-        float(min_eig_threshold), int(bool(bidirectional)),
-        float(fb_threshold), stream)
-    if err != 0:
-        raise RuntimeError(f"lk_pyramid kernel launch failed: CUDA error "
-                           f"{err}")
+    out = launch_pyr(build().visfs_lk_pyr, "lk_pyramid", pyr_from, pyr_to,
+                     pts_from, pts_init, valid, win=win, max_level=max_level,
+                     iterations=iterations, eps=eps,
+                     min_eig_threshold=min_eig_threshold,
+                     bidirectional=bidirectional, fb_threshold=fb_threshold)
     PYR_LAUNCHES += 1
-    return points, status, err_out
-
-
-def track_pyramid(level_fn, pyr_from, pyr_to, pts_from, pts_init, valid,
-                  *, win: int, max_level: int):
-    """The glue of the reference's lk_track_pyr around a level function
-    ``level_fn(img_from, img_to, gx, gy, pts_l, flow, active) -> (flow,
-    ok [N] bool, min_eig)`` (pts_l and flow at the level's scale, active
-    [N] bool).  Returns (points, status, err)."""
-    half = win // 2
-    h, w, pad = pyr_from.height, pyr_from.width, pyr_from.pad
-    flow = (pts_init - pts_from) / (2.0 ** max_level)
-    ok = valid
-    min_eig = torch.zeros(pts_from.shape[0], dtype=torch.float32,
-                          device=pts_from.device)
-    for level in range(max_level, -1, -1):
-        pts_l = pts_from / (2.0 ** level) + pad
-        flow, ok_g, min_eig = level_fn(
-            pyr_from.levels[level], pyr_to.levels[level], pyr_from.gx[level],
-            pyr_from.gy[level], pts_l, flow, ok)
-        ok = ok & ok_g
-        if level > 0:
-            flow = flow * 2.0
-    pts_to = pts_from + flow
-    inb = ((pts_to[:, 0] >= half) & (pts_to[:, 0] < w - half)
-           & (pts_to[:, 1] >= half) & (pts_to[:, 1] < h - half))
-    return pts_to, ok & inb & valid, min_eig
-
-
-def track_bidirectional(track, pyr_from, pyr_to, pts_from, pts_init, valid,
-                        fb_threshold: float):
-    """The reference's lk_track_bidirectional_pyr around a track function
-    ``track(pyr_from, pyr_to, pts_from, pts_init, valid) -> (points,
-    status, err)``: the reverse track from the forward points, seeded at
-    pts_from, and the gate |reverse - pts_from| <= fb_threshold."""
-    points, status, err = track(pyr_from, pyr_to, pts_from, pts_init, valid)
-    rev_points, rev_status, _ = track(pyr_to, pyr_from, points, pts_from,
-                                      status)
-    dist = torch.linalg.vector_norm(rev_points - pts_from, dim=-1)
-    return points, status & rev_status & (dist <= fb_threshold), err
+    return out
 
 
 def lk_pyramid_reference(pyr_from, pyr_to, pts_from, pts_init, valid, *,

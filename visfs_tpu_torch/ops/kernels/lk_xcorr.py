@@ -1,29 +1,49 @@
 """K2: the LK iteration loop in correlation form — CUDA kernel + plain
 version.
 
-``lk_xcorr_iterate`` computes what the reference Pallas kernel
-``visfs_tpu/ops/pallas/lk_xcorr.py:lk_xcorr_iterate`` computes, with its
-signature and layouts (see ``csrc/lk_xcorr.cu`` for the semantics and the
-design on the card).  For CUDA tensors it launches the hand-written kernel
-on PyTorch's current stream; for CPU tensors it runs
-``lk_xcorr_iterate_reference``, the plain PyTorch version (full tent weights
-over the A x A map, ``iterations`` masked steps — the same function).
-Anything else raises; there is no fallback from one to the other.
+Two entries into one loop function (``csrc/lk_xcorr.cu`` states the
+semantics and the design on the card):
 
-``LAUNCHES`` counts kernel launches (the CPU path does not count).  The
-library is built on its own (``_build.load_library``, one nvcc call for
-``lk_xcorr.cu``), so it can build alongside K1's.
+* ``lk_xcorr_iterate`` — the loop of one level for N features, what the
+  reference Pallas kernel ``visfs_tpu/ops/pallas/lk_xcorr.py:lk_xcorr_iterate``
+  computes, with its signature and layouts;
+* ``lk_xcorr_pyramid`` — a whole pyramidal track in correlation form in one
+  launch: per level the jnp level's setup (``jnp_level.level_setup``), the
+  correlation maps and the arguments of the loop
+  (``jnp_level.xcorr_inputs``) and the loop itself, under the per-feature
+  glue of ``lk_track_pyr`` (``pyramid.track_pyramid``) and,
+  with ``bidirectional``, the reverse track and the gate of
+  ``lk_track_bidirectional_pyr`` — what ``ops/lk.py`` runs at
+  ``iter_mode="xcorr"``.
+
+For CUDA tensors each launches the hand-written kernel on PyTorch's current
+stream; for CPU tensors it runs its plain PyTorch version
+(``lk_xcorr_iterate_reference``: full tent weights over the A x A map,
+``iterations`` masked steps — the same function;
+``lk_xcorr_pyramid_reference``: that loop after the jnp level's setup,
+under the same glue).  Anything else raises; there is no fallback from one
+to the other.
+
+``LAUNCHES`` and ``PYR_LAUNCHES`` count the launches of each entry (the CPU
+path does not count).  The library is built on its own
+(``_build.load_library``, one nvcc call for ``lk_xcorr.cu``), so it can
+build alongside K1's.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from ._build import load_library
+from .jnp_level import level_setup, xcorr_inputs
+from .pyramid import (PYR_ARGTYPES, check_pyr, launch_pyr,
+                      track_bidirectional, track_pyramid)
 
 LAUNCHES = 0
+PYR_LAUNCHES = 0
 
 LIB_NAME = "visfs_lk_xcorr"
 _SOURCES = ("lk_xcorr.cu",)
@@ -39,6 +59,10 @@ def build() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3 + [
             ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    fn = lib.visfs_lk_xcorr_pyr
+    if fn.argtypes is None:
+        fn.argtypes = PYR_ARGTYPES
         fn.restype = ctypes.c_int
     return lib
 
@@ -153,3 +177,85 @@ def lk_xcorr_iterate_reference(C1, C2, c1_const, c2_const, gi11, gi12, gi22,
     return xcorr_steps(C1, C2, c1_const, c2_const, gi11, gi12, gi22, base_x,
                        base_y, flow, active, iterations=iterations, eps=eps,
                        max_off=max_off)[0]
+
+
+# --- the pyramid entry -------------------------------------------------------
+#
+# A pyramid argument is an ops.lk.LKPyramid; the checks, the launch and the
+# glue are those of ``pyramid``, shared with K1's pyramid entry.
+
+def lk_xcorr_pyramid(pyr_from, pyr_to, pts_from, pts_init, valid, *,
+                     win: int, max_level: int, iterations: int, eps: float,
+                     min_eig_threshold: float, bidirectional: bool,
+                     fb_threshold: float):
+    """Track pts_from [N, 2] (pyr_from's image) into pyr_to's image from
+    pts_init, over levels max_level .. 0, with the jnp level in correlation
+    form, for the features valid [N] bool selects; with ``bidirectional``,
+    gate by the reverse track.
+    Returns (points [N, 2], status [N] bool, err [N] level-0 min_eig)."""
+    kw = dict(win=win, max_level=max_level, iterations=iterations, eps=eps,
+              min_eig_threshold=min_eig_threshold,
+              bidirectional=bidirectional, fb_threshold=fb_threshold)
+    kind = pts_from.device.type
+    if kind == "cuda":  # checks its inputs itself (once: the tracker's path)
+        return lk_xcorr_pyramid_cuda(pyr_from, pyr_to, pts_from, pts_init,
+                                     valid, **kw)
+    check_pyr(pyr_from, pyr_to, pts_from, pts_init, valid, win, max_level,
+              bidirectional, "lk_xcorr_pyramid")
+    if kind == "cpu":
+        return lk_xcorr_pyramid_reference(pyr_from, pyr_to, pts_from,
+                                          pts_init, valid, **kw)
+    raise ValueError(f"lk_xcorr_pyramid: unsupported device "
+                     f"{pts_from.device}")
+
+
+def lk_xcorr_pyramid_cuda(pyr_from, pyr_to, pts_from, pts_init, valid, *,
+                          win: int, max_level: int, iterations: int,
+                          eps: float, min_eig_threshold: float,
+                          bidirectional: bool, fb_threshold: float):
+    """Launch the pyramid entry (raises when CUDA is absent or the launch
+    fails)."""
+    global PYR_LAUNCHES
+    out = launch_pyr(build().visfs_lk_xcorr_pyr, "lk_xcorr_pyramid",
+                     pyr_from, pyr_to, pts_from, pts_init, valid, win=win,
+                     max_level=max_level, iterations=iterations, eps=eps,
+                     min_eig_threshold=min_eig_threshold,
+                     bidirectional=bidirectional, fb_threshold=fb_threshold)
+    PYR_LAUNCHES += 1
+    return out
+
+
+def lk_xcorr_pyramid_reference(pyr_from, pyr_to, pts_from, pts_init, valid,
+                               *, win: int, max_level: int, iterations: int,
+                               eps: float, min_eig_threshold: float,
+                               bidirectional: bool, fb_threshold: float,
+                               levels: list | None = None):
+    """Plain PyTorch version of the pyramid entry: per level
+    ``jnp_level.level_setup``, ``jnp_level.xcorr_inputs`` and
+    ``xcorr_steps`` (what ``ops.lk._track_level`` runs at iter_mode="xcorr"
+    on the CPU), under the glue of lk_track_pyr /
+    lk_track_bidirectional_pyr.  A ``levels`` list receives, per level and
+    direction in the order run (forward levels max_level .. 0, then the
+    reverse ones), the planes (from, to, gx, gy), the level-scale points,
+    the active mask [N] bool, the level setup, the loop's arguments
+    (``xcorr_inputs``), the steps and the step trail of ``xcorr_steps``."""
+
+    def level_fn(img_from, img_to, gx, gy, pts_l, flow, active):
+        s = level_setup(img_from, img_to, gx, gy, pts_l, flow, win=win,
+                        min_eig_threshold=min_eig_threshold)
+        args, kw = xcorr_inputs(s, pts_l, flow, active, win=win,
+                                iterations=iterations, eps=eps)
+        trail = None if levels is None else []
+        flow, steps = xcorr_steps(*args, **kw, trail=trail)
+        if levels is not None:
+            levels.append(dict(planes=(img_from, img_to, gx, gy), pts=pts_l,
+                               active=active, setup=s, args=args, kw=kw,
+                               steps=steps, trail=trail))
+        return flow, s.ok_g, s.min_eig
+
+    track = functools.partial(track_pyramid, level_fn, win=win,
+                              max_level=max_level)
+    if not bidirectional:
+        return track(pyr_from, pyr_to, pts_from, pts_init, valid)
+    return track_bidirectional(track, pyr_from, pyr_to, pts_from, pts_init,
+                               valid, fb_threshold)

@@ -9,12 +9,16 @@ visfs_tpu.ops.lk).
   are each one ``lk_pyramid`` call, every level and the per-feature glue
   (and the reverse track) in one launch.  ``System`` runs this
   (``LKParams.from_config``).
-* any other backend: ``_track_level``, the reference's own jnp level — a
+* any other backend: the reference's own jnp level (``_track_level``) — a
   (win+2)^2 setup region with bilinear tents, and a ±10 px search region of
   the `to` plane around the level's starting centre, in which the iteration
   loop runs in one of two forms (``iter_mode``): "direct" samples the patch
-  every step (plain PyTorch on either device), "xcorr" builds per-feature
-  correlation maps and runs the loop in K2 (``ops.kernels.lk_xcorr``).
+  every step (plain PyTorch on either device, under the glue of
+  ``track_pyramid``); "xcorr" builds per-feature correlation maps and runs
+  the loop on them, and there ``lk_track_pyr`` and
+  ``lk_track_bidirectional_pyr`` are each one ``lk_xcorr_pyramid`` call
+  (K2, ``ops.kernels.lk_xcorr``): every level's setup, maps and loop and
+  the glue (and the reverse track) in one launch.
 
 The reference's region_extract / setup_region / unroll / compute_dtype
 fields choose TPU lowerings of the same numbers: the port implements one
@@ -32,15 +36,18 @@ from typing import NamedTuple
 import torch
 
 from .image import build_pyramid, edge_pad, scharr_gradients
-from .kernels.lk_level import (lk_pyramid, track_bidirectional,
-                                track_pyramid)
-from .kernels.lk_xcorr import lk_xcorr_iterate
+from .kernels import jnp_level
+# The jnp level's pieces; MARGIN, LevelSetup and _xcorr_maps are also this
+# module's interface to it.
+from .kernels.jnp_level import MARGIN, LevelSetup
+from .kernels.jnp_level import tents as _tents
+from .kernels.jnp_level import xcorr_maps as _xcorr_maps
+from .kernels.lk_level import lk_pyramid
+from .kernels.lk_xcorr import lk_xcorr_iterate, lk_xcorr_pyramid
+from .kernels.pyramid import track_bidirectional, track_pyramid
 
 BACKENDS = ("jnp", "pallas", "jnp-xcorr", "pallas-xcorr")
 ITER_MODES = ("direct", "xcorr")
-# Search margin (px) of the jnp level's `to` region around its starting
-# centre; a feature whose flow leaves it clamps to the region edge.
-MARGIN = 10
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,9 +57,9 @@ class LKParams:
     iterations: int = 30
     eps: float = 0.01
     min_eig_threshold: float = 1e-4
-    # "pallas": K1 per level.  "jnp", "jnp-xcorr", "pallas-xcorr": the jnp
-    # level (_track_level).  The reference's three names pick TPU lowerings
-    # of the xcorr loop; here each runs K2 on CUDA tensors and its plain
+    # "pallas": K1.  "jnp", "jnp-xcorr", "pallas-xcorr": the jnp level
+    # (_track_level).  The reference's three names pick TPU lowerings of
+    # the xcorr loop; here each runs K2 on CUDA tensors and its plain
     # version on CPU tensors.
     backend: str = "jnp"
     # Iteration loop of the jnp level: "direct" or "xcorr".
@@ -123,86 +130,25 @@ def build_lk_pyramid(img, params: LKParams = LKParams()) -> LKPyramid:
 
 
 # --- the jnp level (reference ops/lk.py:_track_level) ----------------------
-
-class LevelSetup(NamedTuple):
-    """What _track_level computes before its iteration loop."""
-
-    patch_i: torch.Tensor  # [N, win, win] bilinear patch of `from`
-    gx: torch.Tensor  # [N, win, win] patches of the gradients
-    gy: torch.Tensor
-    gi11: torch.Tensor  # [N] entries of G^-1 (det-scaled)
-    gi12: torch.Tensor
-    gi22: torch.Tensor
-    ok_g: torch.Tensor  # [N] bool
-    min_eig: torch.Tensor  # [N]
-    region: torch.Tensor  # [N, R, R] `to` plane, R = win + 1 + 2 MARGIN
-    origin: torch.Tensor  # [N, 2] (x, y) corner of region, float
-
-
-def _regions(plane, iy, ix, size: int):
-    """[N, size, size] integer-aligned regions of ``plane`` at corners
-    (ix, iy); rows or columns outside the plane read 0 (as the reference's
-    one-hot selector extraction does when the plane is smaller than the
-    region)."""
-    h, w = plane.shape[-2:]
-    taps = torch.arange(size, device=plane.device)
-    rows = iy[:, None] + taps
-    cols = ix[:, None] + taps
-    inside = (((rows >= 0) & (rows < h))[:, :, None]
-              & ((cols >= 0) & (cols < w))[:, None, :])
-    vals = plane[..., rows.clamp(0, h - 1)[:, :, None],
-                 cols.clamp(0, w - 1)[:, None, :]]
-    return torch.where(inside, vals, torch.zeros((), device=plane.device))
-
-
-def _tents(off, win: int, size: int):
-    """[N, win, size] bilinear tent selectors max(0, 1 - |r - (off + p)|)."""
-    taps_r = torch.arange(size, dtype=torch.float32, device=off.device)
-    taps_p = torch.arange(win, dtype=torch.float32, device=off.device)
-    return torch.clamp(1.0 - torch.abs(
-        taps_r[None, None, :] - (off[:, None, None] + taps_p[None, :, None])),
-        min=0.0)
-
+#
+# Its setup, maps and loop arguments are ``kernels.jnp_level``'s (K2's plain
+# version runs them too); these two take them with an LKParams.
 
 def level_setup(img_from, img_to, grad_x, grad_y, pts_from, flow,
                 params: LKParams) -> LevelSetup:
-    """Setup of one jnp LK level (reference lk.py:170-308): patches, G,
-    min_eig, ok and G^-1 from a (win+2)^2 region of the `from` planes, and
-    the `to` region around pts_from + flow."""
-    win = params.win_size
-    half = win // 2
-    h, w = img_from.shape
-    x0 = torch.clamp(pts_from[:, 0] - half, 0.0, w - win - 1.0)
-    y0 = torch.clamp(pts_from[:, 1] - half, 0.0, h - win - 1.0)
-    rs = win + 2
-    six = torch.clamp(torch.floor(x0).to(torch.int64), 0, w - rs)
-    siy = torch.clamp(torch.floor(y0).to(torch.int64), 0, h - rs)
-    reg3 = _regions(torch.stack([img_from, grad_x, grad_y]), siy, six, rs)
-    sy = _tents(y0 - siy.to(torch.float32), win, rs)  # [N, win, Rs]
-    sx = _tents(x0 - six.to(torch.float32), win, rs)
-    patches = (sy @ reg3) @ sx.transpose(1, 2)  # [3, N, win, win]
-    patch_i, gx, gy = patches.unbind(0)
-    g11 = torch.sum(gx * gx, dim=(1, 2))
-    g12 = torch.sum(gx * gy, dim=(1, 2))
-    g22 = torch.sum(gy * gy, dim=(1, 2))
-    det = g11 * g22 - g12 * g12
-    trace = g11 + g22
-    min_eig = (trace - torch.sqrt(torch.clamp(trace * trace - 4 * det,
-                                              min=0.0))) * 0.5 / (win * win)
-    ok_g = (min_eig > params.min_eig_threshold) & (det > 1e-12)
-    inv_det = 1.0 / torch.where(det > 1e-12, det, torch.ones_like(det))
+    """Setup of one jnp LK level (``jnp_level.level_setup``)."""
+    return jnp_level.level_setup(
+        img_from, img_to, grad_x, grad_y, pts_from, flow,
+        win=params.win_size, min_eig_threshold=params.min_eig_threshold)
 
-    r = win + 1 + 2 * MARGIN
-    ctr = pts_from + flow
-    oix = torch.clamp(torch.floor(ctr[:, 0]).to(torch.int64) - half - MARGIN,
-                      0, w - r)
-    oiy = torch.clamp(torch.floor(ctr[:, 1]).to(torch.int64) - half - MARGIN,
-                      0, h - r)
-    return LevelSetup(
-        patch_i=patch_i, gx=gx, gy=gy, gi11=g22 * inv_det,
-        gi12=-g12 * inv_det, gi22=g11 * inv_det, ok_g=ok_g, min_eig=min_eig,
-        region=_regions(img_to, oiy, oix, r),
-        origin=torch.stack([oix, oiy], dim=-1).to(torch.float32))
+
+def xcorr_inputs(s: LevelSetup, pts_from, flow, active, params: LKParams):
+    """The arguments of K2's loop for one level
+    (``jnp_level.xcorr_inputs``)."""
+    return jnp_level.xcorr_inputs(s, pts_from, flow, active,
+                                  win=params.win_size,
+                                  iterations=params.iterations,
+                                  eps=params.eps)
 
 
 def _iterate_direct(s: LevelSetup, pts_from, flow, active, params: LKParams):
@@ -233,44 +179,6 @@ def _iterate_direct(s: LevelSetup, pts_from, flow, active, params: LKParams):
     return flow
 
 
-def _xcorr_maps(region, gx, gy, win: int):
-    """Per-feature cross-correlation maps of the `to` region against the
-    `from` gradients: C[n,a,b] = sum_pq region[n,a+p,b+q] * g[n,p,q], both
-    [N, A, A] with A = R - win + 1 (reference lk.py:_xcorr_maps).
-
-    One batched product contracts p over the row-shifted view of the
-    region, then one strided view sums the win column diagonals."""
-    n, r, _ = region.shape
-    a = r - win + 1
-    region = region.contiguous()
-    # shifted[n, a, c, p] = region[n, a + p, c]
-    shifted = region.as_strided((n, a, r, win), (r * r, r, 1, r))
-    y = shifted.reshape(n, a * r, win) @ torch.cat([gx, gy], dim=2)
-    y = y.reshape(n, a, r, 2, win)  # y[n, a, c, k, q], contiguous
-    # diag[n, a, b, k, q] = y[n, a, b + q, k, q]
-    diag = y.as_strided((n, a, a, 2, win),
-                        (a * r * 2 * win, r * 2 * win, 2 * win, win,
-                         2 * win + 1))
-    c1, c2 = torch.movedim(diag.sum(dim=-1), -1, 0).contiguous()
-    return c1, c2
-
-
-def xcorr_inputs(s: LevelSetup, pts_from, flow, active, params: LKParams):
-    """The arguments of K2 for one level (reference lk.py:409-437):
-    (positional tuple, keyword dict) of ``lk_xcorr_iterate``."""
-    win = params.win_size
-    half = win // 2
-    c1, c2 = _xcorr_maps(s.region, s.gx, s.gy, win)
-    args = (c1, c2, torch.sum(s.patch_i * s.gx, dim=(1, 2)),
-            torch.sum(s.patch_i * s.gy, dim=(1, 2)), s.gi11, s.gi12, s.gi22,
-            pts_from[:, 0] - half - s.origin[:, 0],
-            pts_from[:, 1] - half - s.origin[:, 1], flow.contiguous(),
-            active & s.ok_g)
-    kw = dict(iterations=params.iterations, eps=params.eps,
-              max_off=float(s.region.shape[1] - win - 1))
-    return args, kw
-
-
 def _track_level(img_from, img_to, grad_x, grad_y, pts_from, flow, active,
                  params: LKParams):
     """One jnp pyramid level of LK for all features; pts_from and flow
@@ -287,10 +195,18 @@ def _track_level(img_from, img_to, grad_x, grad_y, pts_from, flow, active,
 
 # --- pyramidal tracking ------------------------------------------------------
 
-def _k1_pyramid(pyr_from, pyr_to, pts_from, pts_init, valid_mask,
-                params: LKParams, bidirectional: bool,
-                fb_threshold: float) -> LKResult:
-    return LKResult(*lk_pyramid(
+def _fused_pyramid(pyr_from, pyr_to, pts_from, pts_init, valid_mask,
+                   params: LKParams, bidirectional: bool,
+                   fb_threshold: float) -> LKResult | None:
+    """The track as one launch of a pyramid entry: K1's at backend
+    "pallas", K2's in correlation form; None for the direct jnp level."""
+    if params.backend == "pallas":
+        entry = lk_pyramid
+    elif params.iter_mode == "xcorr":
+        entry = lk_xcorr_pyramid
+    else:
+        return None
+    return LKResult(*entry(
         pyr_from, pyr_to, pts_from, pts_init, valid_mask,
         win=params.win_size, max_level=params.max_level,
         iterations=params.iterations, eps=params.eps,
@@ -310,9 +226,10 @@ def lk_track_pyr(pyr_from: LKPyramid, pyr_to: LKPyramid, pts_from, pts_init,
                  valid_mask, params: LKParams = LKParams()) -> LKResult:
     """Track pts_from (in pyr_from's image) into pyr_to's image, starting
     from pts_init; valid_mask [N] selects the features to track."""
-    if params.backend == "pallas":
-        return _k1_pyramid(pyr_from, pyr_to, pts_from, pts_init, valid_mask,
+    fused = _fused_pyramid(pyr_from, pyr_to, pts_from, pts_init, valid_mask,
                            params, False, 0.0)
+    if fused is not None:
+        return fused
     return LKResult(*_jnp_track(params)(pyr_from, pyr_to, pts_from, pts_init,
                                         valid_mask))
 
@@ -322,9 +239,10 @@ def lk_track_bidirectional_pyr(pyr_from: LKPyramid, pyr_to: LKPyramid,
                                params: LKParams = LKParams(),
                                fb_threshold: float = 1.5) -> LKResult:
     """Forward LK + reverse-flow consistency gate (Tracker.cpp:260-274)."""
-    if params.backend == "pallas":
-        return _k1_pyramid(pyr_from, pyr_to, pts_from, pts_init, valid_mask,
+    fused = _fused_pyramid(pyr_from, pyr_to, pts_from, pts_init, valid_mask,
                            params, True, fb_threshold)
+    if fused is not None:
+        return fused
     return LKResult(*track_bidirectional(
         _jnp_track(params), pyr_from, pyr_to, pts_from, pts_init, valid_mask,
         fb_threshold))
