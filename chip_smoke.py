@@ -43,11 +43,42 @@ Phases (each prints its lines; any failure exits non-zero without the final
                 iter_mode="xcorr" (the jnp level in correlation form): the
                 same gates with 2 launches of K2's pyramid entry, 0 of its
                 one-level entry and 0 of either K1 entry per frame;
-  7. small    — the System on "cuda" and "cpu" over 8 frames at 160x120, at
+  7. s3       — the reference bench's phase 4 (bench.py:187-262) at full
+                width: SensorStrategy 3 (stereo, laser, wheel, submap
+                building) over the 120-frame 640x480 textured square loop
+                (seed 1, 180-beam scans) rendered on the card, two 256x256
+                submap slots, 256 scan points, 520 raycast samples; each
+                frame's wheel rows in one batch before the frame and its
+                scan; frames 0-1 then a timed loop over frames 2-119; gate
+                ATE <= 0.15 m, 0 lost, 2 launches of K1's pyramid entry and
+                0 of every other kernel entry per frame, 0 host syncs, and
+                the map (a live slot; the matching grid occupied within a
+                3x3 neighbourhood of every wall probe inside it, free at the
+                free-space probes); fps, a stage split, the submap
+                insertion's device time per call (profiler) and the kernels
+                a frame at strategies 0 and 3 (profiler);
+  8. small    — the System on "cuda" and "cpu" over 8 frames at 160x120, at
                 K1 (the System's default), xcorr, and the reference System's
                 own LK configuration (backend="jnp", direct iteration): per
                 frame translation within 1e-3 m, yaw within 1e-3 rad,
-                inliers within 1, identical lost flags.
+                inliers within 1, identical lost flags.  The same free
+                running at strategies 2 (wheel rows) and 3 (wheel rows and
+                scans), and at 3 then identical slot_valid, num_range_data
+                and finished, max_xy within 1e-4 m, at most 0.1 % of the
+                known cells different.  Free running, float-level noise
+                moves the reference itself by centimetres at strategy 4
+                and decimetres at 5 (reference_laser_noise.py), so there
+                each frame is stepped on "cuda" from the "cpu" run's state:
+                at 4 (wheel rows and scans) held as 3 is; at 5 (scans, no
+                wheel rows: PnP and the laser-only BA) identical lost flags
+                and inliers within 1, the BA problems within 1e-3 m and
+                1e-3 rad and their cost grids identical, the "cpu" problem
+                solved in float64 on both devices within 1e-3 m and 1e-3
+                rad, the "cpu" step's submap insertion replayed on "cuda"
+                within the submap gates, slots, counts and finished flags
+                identical; the float32 gaps (the step's, the same problem
+                solved on both devices, the "cpu" solve under one ulp of
+                the problem) and the cells printed.
 The kernels JSON line, the nvidia-smi line and the final
 {"ok": true, "device": ...} line close the output.
 
@@ -82,7 +113,12 @@ import warnings
 import numpy as np
 
 N_FRAMES = 300
+S3_FRAMES = 120  # bench.py phase 4 (VISFS_BENCH_S3_FRAMES default)
+S3_SCAN_CAPACITY = 256
 WIDTH, HEIGHT = 640, 480
+S3_RENDER = dict(n_frames=S3_FRAMES, width=WIDTH, height=HEIGHT,
+                 motion="square", seed=1, speed=2.0, with_laser=True,
+                 n_beams=180)  # bench.py:199-204
 ATE_GATE = 0.15
 # NVIDIA H100 SXM, published dense peaks (NVIDIA data sheet, no sparsity):
 # device memory 3.35 TB/s, float32 outside the tensor cores 67 TFLOP/s.
@@ -254,8 +290,8 @@ def frame_totals(rows, times):
     return tot
 
 
-def make_system(System, cam, params, device, lk=None):
-    s = System(params, device=device)
+def make_system(System, cam, params, device, lk=None, **kw):
+    s = System(params, device=device, **kw)
     if lk:
         s.lk_params = dataclasses.replace(s.lk_params, **lk)
     s.init(float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy),
@@ -691,29 +727,42 @@ def start_loop(seq, System, lk):
     return sys_, lefts, rights
 
 
-def timed_steps(sys_, seq, lefts, rights):
+def timed_steps(sys_, seq, lefts, rights, feed=None, spans=()):
     """Step frames 2.. of seq through sys_ under the stage probe: CUDA
     events and host clocks around every tracker_step and the whole step of
     every frame (event records do not wait for the device), host syncs
-    caught as warnings.  Returns (elapsed s, medians per frame, the sync
-    messages)."""
+    caught as warnings.  feed(i) feeds frame i (default: the stereo pair);
+    spans: (name, module, attribute) of more functions whose device spans
+    are timed with events the same way.  Returns (elapsed s, medians per
+    frame, the sync messages)."""
     import torch
 
     import visfs_tpu_torch.slam.system as sysmod
 
-    trk_marks, step_marks = [], []
-    tracker_step = sysmod.tracker_step
+    if feed is None:
+        def feed(i):
+            sys_.input_primary_sensor_data(float(seq.stamps[i]), lefts[i],
+                                           rights[i])
 
-    def timed_tracker_step(*a, **kw):
-        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        h0 = time.perf_counter()
-        e0.record()
-        out = tracker_step(*a, **kw)
-        e1.record()
-        trk_marks.append((e0, e1, time.perf_counter() - h0))
-        return out
+    marks = {}
+    patched = []
 
-    sysmod.tracker_step = timed_tracker_step
+    def timed(name, fn):
+        def wrapper(*a, **kw):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            h0 = time.perf_counter()
+            e0.record()
+            out = fn(*a, **kw)
+            e1.record()
+            marks.setdefault(name, []).append(
+                (e0, e1, time.perf_counter() - h0))
+            return out
+        return wrapper
+
+    step_marks = []
+    for name, mod, attr in (("tracker", sysmod, "tracker_step"),) + spans:
+        patched.append((mod, attr, getattr(mod, attr)))
+        setattr(mod, attr, timed(name, getattr(mod, attr)))
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
@@ -723,23 +772,28 @@ def timed_steps(sys_, seq, lefts, rights):
                 s0, s1 = (torch.cuda.Event(enable_timing=True)
                           for _ in range(2))
                 s0.record()
-                sys_.input_primary_sensor_data(float(seq.stamps[i]),
-                                               lefts[i], rights[i])
+                feed(i)
                 s1.record()
                 step_marks.append((s0, s1))
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
     finally:
-        sysmod.tracker_step = tracker_step
+        for mod, attr, fn in patched:
+            setattr(mod, attr, fn)
     n = len(step_marks)
+
+    def device_ms(ms):
+        return float(np.median([a.elapsed_time(b) for a, b, *_ in ms]))
+
     stages = dict(
-        tracker_host_ms=float(np.median([m[2] for m in trk_marks]) * 1e3),
-        tracker_device_ms=float(np.median([a.elapsed_time(b)
-                                           for a, b, _ in trk_marks])),
-        step_device_ms=float(np.median([a.elapsed_time(b)
-                                        for a, b in step_marks])),
-        frame_wall_ms=elapsed / n * 1e3)
+        tracker_host_ms=float(np.median([m[2] for m in marks["tracker"]])
+                              * 1e3),
+        tracker_device_ms=device_ms(marks["tracker"]))
+    for name, _, _ in spans:
+        stages[f"{name}_device_ms"] = device_ms(marks[name])
+    stages.update(step_device_ms=device_ms(step_marks),
+                  frame_wall_ms=elapsed / n * 1e3)
     syncs = [str(w.message) for w in caught
              if "called a synchronizing" in str(w.message)]
     return elapsed, stages, syncs
@@ -785,10 +839,271 @@ def phase_loop(label, seq, System, lk, expect, ate_rmse):
     return launches
 
 
+def s3_params(width):
+    """Bench phase 4's parameters (bench.py:199-205)."""
+    return dict(bench_params(width), **{"System/SensorStrategy": 3})
+
+
+def wheel_and_scan_feeder(sys_, seq, lefts, rights, wheel=True, scans=True):
+    """feed(i): frame i's wheel rows up to its stamp in one batch, then the
+    frame with its scan (bench.py:221-234)."""
+    pos = [0]
+    odom = seq.wheel_odom
+
+    def feed(i):
+        j = pos[0]
+        while wheel and j < len(odom) and odom[j][0] <= seq.stamps[i] + 1e-9:
+            j += 1
+        if j > pos[0]:
+            rows = odom[pos[0]:j]
+            sys_.input_wheel_odometry_batch(rows[:, 0], rows[:, 1:7])
+            pos[0] = j
+        sys_.input_primary_sensor_data(
+            float(seq.stamps[i]), lefts[i], rights[i],
+            scan=seq.laser_scans[i] if scans else None)
+    return feed
+
+
+def device_ms_per_call(fn, reps=10):
+    """(device ms, kernels) per call of fn: every CUDA kernel of a
+    torch.profiler trace of reps calls, summed, over reps."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA]
+    return sum(us) / reps / 1e3, len(us) / reps
+
+
+def map_gate(submaps, room, label):
+    """The map's gates on the matching grid (tests/test_laser_fusion.py:
+    135-165): probability > 0.5 within a 3x3 neighbourhood of every wall
+    probe inside the grid, < 0.5 at the free-space probes.  The wall probes
+    are the test's three and the four walls level with the matching
+    submap's origin; the free-space probes the test's (0.5, 0) and that
+    origin.  At least one wall probe must lie inside."""
+    import torch
+
+    from visfs_tpu_torch.map2d import grid2d
+    from visfs_tpu_torch.map2d import probability_values as pv
+    from visfs_tpu_torch.map2d.submap import matching_grid
+
+    if not bool(submaps.slot_valid.any()):
+        fail(f"{label}: no live submap slot")
+    grid = matching_grid(submaps)
+    dev = grid.cells.device
+    ct = pv.cost_table(dev)
+    first = bool(submaps.slot_valid[0])
+    ox, oy = submaps.origin[0 if first else 1, :2].tolist()
+    x0, x1, y0, y1 = room
+    walls = dict.fromkeys([(x0, 0.0), (0.0, y0), (0.0, y1),
+                           (x0, oy), (x1, oy), (ox, y0), (ox, y1)])
+    nbhd = torch.tensor([(da, db) for da in (-1, 0, 1) for db in (-1, 0, 1)],
+                        device=dev)
+    rows, bad = [], []
+    for pt in walls:
+        idx = grid2d.cell_index(grid.limits,
+                                torch.tensor(pt, dtype=torch.float32,
+                                             device=dev))
+        if not bool(grid2d.contains(grid.limits, idx)):
+            continue
+        best = float(grid2d.probability(grid, idx + nbhd, ct).max())
+        rows.append(f"wall {pt[0]:.2f},{pt[1]:.2f} {best:.3f}")
+        if not best > 0.5:
+            bad.append(rows[-1])
+    n_walls = len(rows)
+    for pt in dict.fromkeys([(0.5, 0.0), (ox, oy)]):
+        idx = grid2d.cell_index(grid.limits,
+                                torch.tensor(pt, dtype=torch.float32,
+                                             device=dev))
+        p = float(grid2d.probability(grid, idx, ct))
+        inside = bool(grid2d.contains(grid.limits, idx))
+        rows.append(f"free {pt[0]:.2f},{pt[1]:.2f} {p:.3f}"
+                    + ("" if inside else " (outside)"))
+        if not p < 0.5:
+            bad.append(rows[-1])
+    print(f"{label} map: slots {submaps.slot_valid.tolist()}, range data "
+          f"{submaps.num_range_data.tolist()}, finished "
+          f"{submaps.finished.tolist()}; matching grid probes: "
+          + "; ".join(rows), flush=True)
+    if n_walls == 0:
+        fail(f"{label}: no wall probe inside the matching grid")
+    if bad:
+        fail(f"{label}: map probes failed: {bad}")
+
+
+def phase_s3(System, cached_textured_sequence, cache_dir, expect, ate_rmse):
+    """Bench phase 4 on the card: SensorStrategy 3 over the 120-frame
+    640x480 loop with wheel rows and scans.  expect as for phase_loop."""
+    import torch
+
+    import visfs_tpu_torch.slam.estimator as est_mod
+    import visfs_tpu_torch.slam.system as sysmod
+
+    t0 = time.perf_counter()
+    seq = cached_textured_sequence(cache_dir=cache_dir, device="cuda",
+                                   **S3_RENDER)
+    print(f"s3 sim: {S3_FRAMES} frames {WIDTH}x{HEIGHT} with "
+          f"{seq.laser_scans.shape[1]}-beam scans in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    lefts = [torch.as_tensor(f, device="cuda") for f in seq.left]
+    rights = [torch.as_tensor(f, device="cuda") for f in seq.right]
+    sys_ = make_system(System, seq.camera, s3_params(WIDTH), "cuda",
+                       scan_capacity=S3_SCAN_CAPACITY)
+    sub0 = sys_.state.laser.submaps
+    print(f"s3 sizes: submap slots {list(sub0.cells.shape)}, scan capacity "
+          f"{S3_SCAN_CAPACITY}, raycast samples "
+          f"{sys_.settings.raycast_samples}", flush=True)
+    feed = wheel_and_scan_feeder(sys_, seq, lefts, rights)
+    for i in range(2):
+        feed(i)
+    sys_.drain_outputs()
+    torch.cuda.synchronize()
+
+    # the last insertion's arguments, for the device-time probe below
+    insert = est_mod.insert_range_data_active
+    last = {}
+
+    def keep_args(*a, **kw):
+        last.update(a=a, kw=kw)
+        return insert(*a, **kw)
+
+    est_mod.insert_range_data_active = keep_args
+    for mod, counter in expect:
+        setattr(mod, counter, 0)
+    try:
+        elapsed, stages, syncs = timed_steps(
+            sys_, seq, lefts, rights, feed=feed,
+            spans=(("prepare", sysmod, "estimator_prepare"),
+                   ("ba", sysmod.ba_mod, "local_optimize"),
+                   ("finalize", sysmod, "estimator_finalize"),
+                   ("insert", est_mod, "insert_range_data_active")))
+    finally:
+        est_mod.insert_range_data_active = insert
+    launches = {key: getattr(*key) for key in expect}
+    outs = sys_.drain_outputs()
+    n = S3_FRAMES - 2
+    fps = n / elapsed
+    est = np.stack([o.pose for o in outs])
+    if not np.all(np.isfinite(est)) or est.shape != (n, 4, 4):
+        fail(f"s3: poses not finite [{n}, 4, 4]: {est.shape}")
+    ate = ate_rmse(est, seq.poses[2:2 + len(est)])
+    lost = int(sum(bool(o.lost) for o in outs))
+    counts = ", ".join(f"{mod.__name__.rsplit('.', 1)[-1]}.{counter} {c} "
+                       f"({c / n:g}/frame)"
+                       for (mod, counter), c in launches.items())
+    print(f"s3: {fps:.2f} fps over {n} frames ({elapsed:.2f} s), ATE "
+          f"{ate:.4f} m, lost {lost}/{len(outs)}, fewest inliers "
+          f"{min(int(o.n_inliers) for o in outs)}, {counts}, host syncs in "
+          f"loop {len(syncs)}", flush=True)
+    print("s3 stages (medians per frame): " + json.dumps(stages), flush=True)
+    for msg in sorted(set(syncs))[:5]:
+        print(f"s3: sync: {msg[:200]}", flush=True)
+    ins_ms, ins_kernels = device_ms_per_call(
+        lambda: insert(*last["a"], **last["kw"]))
+    print(f"s3 submap insertion (the last frame's inputs): {ins_ms:.4f} ms "
+          f"of device time per call in {ins_kernels:g} kernels "
+          f"(torch.profiler)", flush=True)
+    map_gate(sys_.state.laser.submaps, seq.room, "s3")
+    if not ate <= ATE_GATE:
+        fail(f"s3: ATE {ate:.4f} m > {ATE_GATE}")
+    if lost:
+        fail(f"s3: {lost} lost frames")
+    if syncs:
+        fail(f"s3: {len(syncs)} host syncs in the loop")
+    for (mod, counter), per_frame in expect.items():
+        if launches[mod, counter] != per_frame * n:
+            fail(f"s3: {mod.__name__}.{counter} is "
+                 f"{launches[mod, counter]}, expected {per_frame * n}")
+    kernels_per_frame(System, seq, lefts, rights)
+    return launches
+
+
+def kernels_per_frame(System, seq, lefts, rights, warm=4, frames=2):
+    """Device kernels and kernel time a frame at strategies 0 and 3 on the
+    s3 loop's frames: a fresh System each, frames 0..warm-1 untraced, the
+    next ``frames`` under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    per = {}
+    for strategy in (0, 3):
+        p = dict(s3_params(WIDTH), **{"System/SensorStrategy": strategy})
+        s = make_system(System, seq.camera, p, "cuda",
+                        scan_capacity=S3_SCAN_CAPACITY)
+        feed = wheel_and_scan_feeder(s, seq, lefts, rights,
+                                     wheel=strategy >= 2,
+                                     scans=strategy >= 3)
+        for i in range(warm):
+            feed(i)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(warm, warm + frames):
+                feed(i)
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA]
+        per[strategy] = (len(us) / frames, sum(us) / frames / 1e3)
+    print(f"s3 kernels a frame (torch.profiler, frames {warm}-"
+          f"{warm + frames - 1}): strategy 0 {per[0][0]:.0f} ({per[0][1]:.2f} "
+          f"ms of kernel time), strategy 3 {per[3][0]:.0f} ({per[3][1]:.2f} "
+          f"ms); strategy 3 adds {per[3][0] - per[0][0]:.0f}", flush=True)
+
+
+def compare_runs(label, cuda_outs, cpu_outs):
+    """Per frame, the System on "cuda" against "cpu": translation within
+    1e-3 m, yaw within 1e-3 rad, inliers within 1, identical lost flags."""
+    worst_t = worst_yaw = 0.0
+    for i, (a, b) in enumerate(zip(cuda_outs, cpu_outs)):
+        dt = float(np.abs(a.pose[:3, 3] - b.pose[:3, 3]).max())
+        dyaw = abs(float(np.arctan2(a.pose[1, 0], a.pose[0, 0])
+                         - np.arctan2(b.pose[1, 0], b.pose[0, 0])))
+        worst_t, worst_yaw = max(worst_t, dt), max(worst_yaw, dyaw)
+        if dt > 1e-3 or dyaw > 1e-3 or bool(a.lost) != bool(b.lost) \
+                or abs(int(a.n_inliers) - int(b.n_inliers)) > 1:
+            fail(f"small {label}: frame {i} cuda vs cpu: dt {dt:.3g} m, "
+                 f"dyaw {dyaw:.3g}, inliers {int(a.n_inliers)}/"
+                 f"{int(b.n_inliers)}, lost {bool(a.lost)}/{bool(b.lost)}")
+    if len(cuda_outs) != len(cpu_outs):
+        fail(f"small {label}: {len(cuda_outs)} cuda against "
+             f"{len(cpu_outs)} cpu frames")
+    return f"max |dt| {worst_t:.3g} m, max |dyaw| {worst_yaw:.3g} rad"
+
+
+def compare_submaps(label, a, b):
+    """The submaps of the "cuda" and "cpu" runs: identical slot_valid,
+    num_range_data and finished, max_xy within 1e-4 m, at most 0.1 % of
+    the known cells (known in either) different."""
+    for f in ("slot_valid", "num_range_data", "finished"):
+        if not np.array_equal(getattr(a, f).cpu().numpy(),
+                              getattr(b, f).cpu().numpy()):
+            fail(f"small {label}: {f} {getattr(a, f).tolist()} cuda, "
+                 f"{getattr(b, f).tolist()} cpu")
+    dxy = float((a.max_xy.cpu() - b.max_xy.cpu()).abs().max())
+    if not dxy <= 1e-4:
+        fail(f"small {label}: max_xy differs by {dxy:.3g} m")
+    ca, cb = a.cells.cpu(), b.cells.cpu()
+    known = int(((ca != 0) | (cb != 0)).sum())
+    differ = int((ca != cb).sum())
+    if differ > 1e-3 * known:
+        fail(f"small {label}: {differ} of {known} known cells differ")
+    return (f"submaps identical in slots, counts and finished, max_xy "
+            f"within {dxy:.3g} m, {differ} of {known} known cells differ")
+
+
 def phase_small(System, cached_textured_sequence, cache_dir):
     seq = cached_textured_sequence(cache_dir=cache_dir, n_frames=8,
                                    width=160, height=120, motion="square",
-                                   seed=0, speed=2.0, device="cuda")
+                                   seed=0, speed=2.0, with_laser=True,
+                                   n_beams=180, device="cuda")
     params = bench_params(160)
     params["Tracker/MaxFeatures"] = 40
     for label, lk in (("k1", None), ("xcorr", XCORR),
@@ -797,21 +1112,209 @@ def phase_small(System, cached_textured_sequence, cache_dir):
         for dev in ("cuda", "cpu"):
             s = make_system(System, seq.camera, params, dev, lk)
             runs[dev] = s.run_sequence(seq.stamps, seq.left, seq.right)
-        worst_t = worst_yaw = 0.0
-        for i, (a, b) in enumerate(zip(runs["cuda"], runs["cpu"])):
-            dt = float(np.abs(a.pose[:3, 3] - b.pose[:3, 3]).max())
-            dyaw = abs(float(np.arctan2(a.pose[1, 0], a.pose[0, 0])
-                             - np.arctan2(b.pose[1, 0], b.pose[0, 0])))
-            worst_t, worst_yaw = max(worst_t, dt), max(worst_yaw, dyaw)
-            if dt > 1e-3 or dyaw > 1e-3 or bool(a.lost) != bool(b.lost) \
+        print(f"small {label}: cuda vs cpu over 8 frames at 160x120: "
+              + compare_runs(label, runs["cuda"], runs["cpu"]), flush=True)
+    # strategies 2 and 3 with wheel rows, scans at 3, free running; a
+    # submap rotates every 3 scans, so 8 frames start a second one and
+    # finish the first
+    for strategy in (2, 3):
+        p = fusion_params(params, strategy)
+        label = f"strategy {strategy}"
+        scans = seq.laser_scans if strategy == 3 else None
+        free = {dev: make_system(System, seq.camera, p, dev,
+                                 scan_capacity=S3_SCAN_CAPACITY)
+                for dev in ("cuda", "cpu")}
+        runs = {dev: s.run_sequence(seq.stamps, seq.left, seq.right,
+                                    wheel_odom=seq.wheel_odom, scans=scans)
+                for dev, s in free.items()}
+        line = compare_runs(label, runs["cuda"], runs["cpu"])
+        if strategy == 3:
+            line += "; " + compare_submaps(
+                label, free["cuda"].state.laser.submaps,
+                free["cpu"].state.laser.submaps)
+        print(f"small {label}: cuda vs cpu over 8 frames at 160x120, free "
+              f"running: {line}", flush=True)
+    # strategies 4 (wheel rows) and 5 (none: its own path, PnP and the
+    # laser-only BA) with scans.  Free running, float-level noise moves
+    # the reference itself by centimetres at 4 and decimetres at 5
+    # (reference_laser_noise.py), so each frame is stepped on "cuda" from
+    # the "cpu" run's state.
+    stepped_fusion(System, seq, fusion_params(params, 4), "strategy 4",
+                   wheel=True)
+    stepped_fusion(System, seq, fusion_params(params, 5), "strategy 5",
+                   wheel=False)
+
+
+def fusion_params(params, strategy):
+    return dict(params, **{"System/SensorStrategy": strategy,
+                           "LocalMap/NumRangeDataLimit": 3})
+
+
+def stepped_fusion(System, seq, p, label, wheel):
+    """Each frame stepped on "cuda" from the "cpu" run's state, with
+    scans.  With wheel rows (strategy 4) the step is held as compare_runs
+    and compare_submaps hold it.  Without (strategy 5) the laser-only BA
+    leaves z, roll and pitch unobserved and its float32 steps follow the
+    rounding noise (reference_laser_noise.py: one ulp of its state moves
+    the reference's step by up to centimetres), so the step is held on
+    what that noise does not decide: lost flags and inliers, the BA problem
+    each side builds, that problem solved in float64 on both devices, the
+    submap insertion replayed on "cuda" with the "cpu" step's inputs,
+    and the submaps' slots, counts and finished flags.  The float32 gaps are
+    printed with their parts: the same problem solved in float32 on both
+    devices, and on "cpu" under one ulp of the problem."""
+    import torch
+
+    import visfs_tpu_torch.slam.estimator as est_mod
+    import visfs_tpu_torch.solver.ba as ba_mod
+
+    devs = gpu, cpu = "cuda", "cpu"
+    sys_ = {dev: make_system(System, seq.camera, p, dev,
+                             scan_capacity=S3_SCAN_CAPACITY)
+            for dev in devs}
+    feeds = {dev: wheel_and_scan_feeder(s, seq, seq.left, seq.right,
+                                        wheel=wheel)
+             for dev, s in sys_.items()}
+    optimize, insert = ba_mod.local_optimize, est_mod.insert_range_data_active
+    seen, side = {}, [None]
+
+    def keep_ba(problem, settings):
+        res = optimize(problem, settings)
+        seen[side[0], "ba"] = (problem, settings, res)
+        return res
+
+    def keep_insert(*a, **kw):
+        out = insert(*a, **kw)
+        seen[side[0], "insert"] = (a, kw, out)
+        return out
+
+    outs = {dev: [] for dev in devs}
+    worst = {"problem": 0.0, "f64": 0.0, "f32": 0.0, "ulp": 0.0}
+    cells = []
+    if not wheel:
+        ba_mod.local_optimize = keep_ba
+        est_mod.insert_range_data_active = keep_insert
+    try:
+        for i in range(len(seq.stamps)):
+            sys_[gpu].state = tensors_to(sys_[cpu].state, gpu)
+            for dev in devs:
+                side[0] = dev
+                feeds[dev](i)
+                outs[dev] += sys_[dev].drain_outputs()
+            if wheel:
+                continue
+            a, b = outs[gpu][-1], outs[cpu][-1]
+            if bool(a.lost) != bool(b.lost) \
                     or abs(int(a.n_inliers) - int(b.n_inliers)) > 1:
-                fail(f"small {label}: frame {i} cuda vs cpu: dt {dt:.3g} m, "
-                     f"dyaw {dyaw:.3g}, inliers {int(a.n_inliers)}/"
+                fail(f"small {label}: frame {i} inliers {int(a.n_inliers)}/"
                      f"{int(b.n_inliers)}, lost {bool(a.lost)}/"
                      f"{bool(b.lost)}")
-        print(f"small {label}: cuda vs cpu over 8 frames at 160x120: max "
-              f"|dt| {worst_t:.3g} m, max |dyaw| {worst_yaw:.3g} rad",
-              flush=True)
+            prob_gpu, _, _ = seen[gpu, "ba"]
+            prob, settings, res = seen[cpu, "ba"]
+            valid = prob.pose_valid
+            worst["problem"] = max(worst["problem"], pose_gap(
+                f"{label}: frame {i} BA problem", prob_gpu, prob, valid))
+            if not torch.equal(prob_gpu.laser.cost_grid.cpu(),
+                               prob.laser.cost_grid.cpu()):
+                fail(f"small {label}: frame {i} cost grids differ")
+            r64 = [optimize(tensors_to(prob, dev, torch.float64), settings)
+                   for dev in devs]
+            worst["f64"] = max(worst["f64"], pose_gap(
+                f"{label}: frame {i} float64 BA", *r64, valid))
+            r32 = optimize(tensors_to(prob, gpu), settings)
+            worst["f32"] = max(worst["f32"], pose_gap(
+                "", r32, res, valid, gate=False))
+            r_ulp = optimize(nudged(prob), settings)
+            worst["ulp"] = max(worst["ulp"], pose_gap(
+                "", r_ulp, res, valid, gate=False))
+            args, kw, sub = seen[cpu, "insert"]
+            compare_submaps(f"{label}: frame {i} insertion replayed",
+                            insert(*tensors_to(args, gpu), **kw), sub)
+            for f in ("slot_valid", "num_range_data", "finished"):
+                x = getattr(sys_[gpu].state.laser.submaps, f).cpu()
+                y = getattr(sys_[cpu].state.laser.submaps, f).cpu()
+                if not torch.equal(x, y):
+                    fail(f"small {label}: frame {i} {f} {x.tolist()} / "
+                         f"{y.tolist()}")
+            ca = sys_[gpu].state.laser.submaps.cells.cpu()
+            cb = sys_[cpu].state.laser.submaps.cells.cpu()
+            cells.append(int((ca != cb).sum()))
+    finally:
+        ba_mod.local_optimize = optimize
+        est_mod.insert_range_data_active = insert
+    if wheel:
+        line = compare_runs(f"{label} (stepped from the cpu state)",
+                            outs[gpu], outs[cpu]) + "; " + compare_submaps(
+            label, sys_[gpu].state.laser.submaps,
+            sys_[cpu].state.laser.submaps)
+    else:
+        gaps = [float(np.abs(x.pose[:3, 3] - y.pose[:3, 3]).max())
+                for x, y in zip(outs[gpu], outs[cpu])]
+        line = (f"lost and inliers held; BA problems within "
+                f"{worst['problem']:.3g}, float64 BA within "
+                f"{worst['f64']:.3g}, insertions replayed within the "
+                f"submap gates, slots, counts and finished identical "
+                f"(held); not held, float32 noise: the step's translation "
+                f"gap per frame {' '.join(f'{g:.2g}' for g in gaps)} m, "
+                f"the same problem in float32 on both devices up to "
+                f"{worst['f32']:.3g}, on {cpu} under one ulp of the problem "
+                f"up to {worst['ulp']:.3g}, cells different per frame "
+                f"{' '.join(map(str, cells))}")
+    print(f"small {label}: each frame stepped on {gpu} from the {cpu} run's "
+          f"state: {line}", flush=True)
+
+
+def pose_gap(label, a, b, valid, gate=True):
+    """The largest translation (m) and rotation (rad) gap between the
+    valid poses of two BA problems or results; fails beyond 1e-3 of
+    either when gate.  Returns the larger."""
+    import torch
+
+    v = valid.cpu()
+    qa, qb = a.pose_q.cpu().double()[v], b.pose_q.cpu().double()[v]
+    dt = float((a.pose_t.cpu().double()[v] - b.pose_t.cpu().double()[v])
+               .abs().max())
+    dot = torch.abs((qa / qa.norm(dim=-1, keepdim=True)
+                     * (qb / qb.norm(dim=-1, keepdim=True))).sum(-1))
+    dr = float((2.0 * torch.acos(torch.clamp(dot, max=1.0))).max())
+    if gate and (not dt <= 1e-3 or not dr <= 1e-3):
+        fail(f"small {label}: translation {dt:.3g} m, rotation {dr:.3g} "
+             f"rad apart")
+    return max(dt, dr)
+
+
+def nudged(problem):
+    """problem with every float32 tensor one ulp up."""
+    import torch
+
+    def one(x):
+        if isinstance(x, torch.Tensor) and x.dtype == torch.float32:
+            return torch.nextafter(x, torch.full_like(x, float("inf")))
+        return x
+    return map_tensors(problem, one)
+
+
+def map_tensors(x, fn):
+    """fn over every tensor of nested NamedTuples and tuples."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(map_tensors(v, fn) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(map_tensors(v, fn) for v in x)
+    return x
+
+
+def tensors_to(x, device, float_dtype=None):
+    """x (a VOState, a BAProblem, an argument tuple) on device, its
+    floating tensors in float_dtype where given."""
+    def one(t):
+        if float_dtype is not None and t.is_floating_point():
+            return t.to(device, float_dtype)
+        return t.to(device)
+    return map_tensors(x, one)
 
 
 def kernel_entry(name, source, replaces, launches, tot):
@@ -886,7 +1389,13 @@ def main():
     xcorr_launches = phase_loop(
         "xcorr", seq, System, XCORR,
         {k1_pyr: 0, k1_level: 0, k2_pyr: 2, k2_level: 0}, ate_rmse)
+    t0 = time.perf_counter()
+    phase_s3(System, cached_textured_sequence, cache_dir,
+             {k1_pyr: 2, k1_level: 0, k2_pyr: 0, k2_level: 0}, ate_rmse)
+    t1 = time.perf_counter()
     phase_small(System, cached_textured_sequence, cache_dir)
+    print(f"phase times: s3 {t1 - t0:.1f} s, small "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [
         kernel_entry("lk_pyramid", "visfs_tpu_torch/csrc/lk_level.cu",

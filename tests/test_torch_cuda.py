@@ -13,7 +13,9 @@ same-formulation tolerance, tests/test_lk_pallas.py:104-106), inactive
 features bit-equal; K2's pyramid entry points 0.01 px (the pyramidal
 tolerance of tests/test_torch_xcorr.py), status identical, err rtol 1e-3;
 the step per frame translation 1e-3 m, yaw 1e-3 rad, inliers within 1,
-identical lost flags."""
+identical lost flags; at SensorStrategy 3 also the submaps' slots, counts
+and finished flags identical, max_xy within 1e-4 m and at most 0.1 % of
+the known cells different."""
 
 import dataclasses
 
@@ -205,3 +207,43 @@ def test_step_on_cuda_matches_cpu(seq, lk):
         assert abs(yaw[0] - yaw[1]) <= 1e-3
         assert abs(int(a.n_inliers) - int(b.n_inliers)) <= 1
         assert bool(a.lost) == bool(b.lost)
+
+
+def test_strategy3_step_on_cuda_matches_cpu():
+    """SensorStrategy 3 (stereo, wheel rows, scans, submap building) on
+    "cuda" against "cpu" over 6 frames at 160x120: the per-frame pose
+    tolerances above, and the submaps' slots, counts and finished flags
+    identical, max_xy within 1e-4 m, at most 0.1 % of the known cells
+    different."""
+    _require_gpu()
+    laser_seq = generate_textured_sequence(
+        n_frames=6, width=160, height=120, seed=0, speed=2.0,
+        with_laser=True, n_beams=180, device="cuda")
+    params = {"Tracker/MaxFeatures": 40, "Tracker/MinDistance": 12,
+              "Tracker/QualityLevel": 0.05, "Optimizer/Iterations": 20,
+              "Estimator/Force3DoF": True, "System/SensorStrategy": 3,
+              "LocalMap/NumRangeDataLimit": 2}
+    cam = laser_seq.camera
+    outs, subs = {}, {}
+    for dev in ("cuda", "cpu"):
+        s = System(params, device=dev, scan_capacity=256)
+        s.init(float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy),
+               float(cam.baseline), width=cam.width, height=cam.height)
+        outs[dev] = s.run_sequence(laser_seq.stamps, laser_seq.left,
+                                   laser_seq.right,
+                                   wheel_odom=laser_seq.wheel_odom,
+                                   scans=laser_seq.laser_scans)
+        subs[dev] = s.state.laser.submaps
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        np.testing.assert_allclose(a.pose[:3, 3], b.pose[:3, 3], atol=1e-3)
+        yaw = [np.arctan2(o.pose[1, 0], o.pose[0, 0]) for o in (a, b)]
+        assert abs(yaw[0] - yaw[1]) <= 1e-3
+        assert abs(int(a.n_inliers) - int(b.n_inliers)) <= 1
+        assert bool(a.lost) == bool(b.lost)
+    a, b = subs["cuda"], subs["cpu"]
+    for f in ("slot_valid", "num_range_data", "finished"):
+        assert torch.equal(getattr(a, f).cpu(), getattr(b, f))
+    assert float((a.max_xy.cpu() - b.max_xy).abs().max()) <= 1e-4
+    known = int(((a.cells.cpu() != 0) | (b.cells != 0)).sum())
+    assert known > 0
+    assert int((a.cells.cpu() != b.cells).sum()) <= 1e-3 * known

@@ -4,7 +4,9 @@ visfs_tpu on the same inputs.
 GFTT: the same point set (and scores to rtol 1e-4).  Simulator: the same
 ground-truth poses and wheel odometry (exactly), and after 8-bit
 quantisation at least 99.9 % of pixels equal with none off by more than 1
-(float32 renders whose sums are ordered alike)."""
+(float32 renders whose sums are ordered alike); the 2D laser scans
+(``_scan_world``, numpy on both sides) equal exactly, on the same poses and
+in whole sequences."""
 
 import jax
 import jax.numpy as jnp
@@ -64,6 +66,41 @@ def test_sim_cache_and_ate(tmp_path):
     assert tsim.ate_rmse(est, first.poses) == pytest.approx(
         jsim.ate_rmse(est, first.poses))
     assert tsim.ate_rmse(est, first.poses) == pytest.approx(0.1, rel=1e-6)
+
+
+@pytest.mark.parametrize("noise", [0.0, 0.03])
+def test_scan_world_matches_reference(sims, noise):
+    room = (-5.5, 15.5, -4.0, 12.0)
+    traj = np.stack([sims[0].poses[:, 0, 3], sims[0].poses[:, 1, 3]], -1)
+    _, jp = jsim._make_world(np.random.default_rng(3), room, -0.6, 1.4, 6,
+                             traj)
+    _, tp = tsim._make_world(np.random.default_rng(3), room, -0.6, 1.4, 6,
+                             traj)
+    assert tp == jp and len(tp) > 0
+    jr, tr = np.random.default_rng(4), np.random.default_rng(4)
+    for pose in sims[0].poses:
+        np.testing.assert_array_equal(
+            tsim._scan_world(pose, room, tp, 90, tr, noise),
+            jsim._scan_world(pose, room, jp, 90, jr, noise))
+
+
+def test_sim_laser_scans_equal(tmp_path):
+    kw = dict(SIM_KW, with_laser=True, n_beams=90, laser_noise=0.02)
+    ref = jsim.generate_textured_sequence(**kw)
+    port = tsim.generate_textured_sequence(**kw, device="cpu")
+    assert port.laser_scans.shape == (6, 90, 3)
+    np.testing.assert_array_equal(port.laser_scans, ref.laser_scans)
+    assert port.room == ref.room
+    # drawn after the wheel odometry: the earlier stream is unchanged
+    np.testing.assert_array_equal(port.wheel_odom, ref.wheel_odom)
+    cached = tsim.cached_textured_sequence(cache_dir=str(tmp_path),
+                                           **dict(kw, n_frames=2),
+                                           device="cpu")
+    again = tsim.cached_textured_sequence(cache_dir=str(tmp_path),
+                                          **dict(kw, n_frames=2),
+                                          device="cpu")
+    np.testing.assert_array_equal(again.laser_scans, cached.laser_scans)
+    assert again.room == cached.room
 
 
 @pytest.fixture(scope="module")

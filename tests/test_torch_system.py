@@ -234,7 +234,7 @@ def test_system_requires_a_device():
 
 
 @pytest.mark.parametrize("override", [
-    {"System/SensorStrategy": 2}, {"System/CLAHE": True},
+    {"System/SensorStrategy": 1}, {"System/CLAHE": True},
     {"Tracker/CullByFundationMatrix": True}])
 def test_system_rejects_unported_options(override):
     with pytest.raises(NotImplementedError):

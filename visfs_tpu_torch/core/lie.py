@@ -12,6 +12,18 @@ import torch
 _EPS = 1e-8
 
 
+def fma(a, b, c):
+    """a * b + c as a fused multiply-add computes it, by way of float64: the
+    product of two float32 values is exact there, the sum is rounded to
+    float64 and then to float32.  That double rounding equals the fused
+    single rounding except where the float64 sum lands exactly halfway
+    between two float32 values, which the exact sum was not (a tie broken
+    the other way: one ulp).  Where the reference's compiled program
+    contracts a product and a sum, and a later floor or comparison turns an
+    ulp into a different cell, the port rounds this way too; only there."""
+    return (a.double() * b.double() + c.double()).to(a.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Quaternion algebra  (q = [w, x, y, z])
 # ---------------------------------------------------------------------------

@@ -3,9 +3,9 @@ the textured generator in visfs_tpu.io.sim).
 
 A closed rectangular room (walls, floor, ceiling) plus pillars, all with
 multi-octave value-noise textures, is ray-cast through the stereo rig on the
-given device; exposure drift, pixel noise and wheel odometry come from the
-same numpy random stream, drawn in the reference's call order, so a seed
-gives the reference's sequence.
+given device; exposure drift, pixel noise, wheel odometry and the 2D laser
+scans (``with_laser``, numpy) come from the same numpy random stream, drawn
+in the reference's call order, so a seed gives the reference's sequence.
 """
 
 from __future__ import annotations
@@ -30,6 +30,8 @@ class SimSequence(NamedTuple):
     poses: np.ndarray  # [T, 4, 4] ground-truth robot poses Twr
     wheel_odom: np.ndarray  # [T_odom, 8]: (stamp, x, y, z, r, p, yaw, valid)
     camera: StereoCamera
+    laser_scans: np.ndarray | None = None  # [T, n_beams, 3] robot frame
+    room: tuple | None = None  # (x0, x1, y0, y1) walls, with laser scans
 
 
 def default_camera(width=320, height=240, device="cuda"):
@@ -65,7 +67,8 @@ def _bounded_plane(rng, p0, n, e1, e2, u01, v01) -> _Plane:
 
 
 def _make_world(rng, room, z_floor, z_ceil, n_pillars, traj_xy):
-    """Walls, floor, ceiling and pillar faces (reference RNG call order)."""
+    """Walls, floor, ceiling and pillar faces (reference RNG call order),
+    and the pillars' AABBs (x0, x1, y0, y1) for the laser."""
     x0, x1, y0, y1 = room
     planes = [
         _bounded_plane(rng, (x1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, 0, 1),
@@ -81,8 +84,9 @@ def _make_world(rng, room, z_floor, z_ceil, n_pillars, traj_xy):
         _bounded_plane(rng, (0, 0, z_ceil), (0, 0, -1), (1, 0, 0), (0, 1, 0),
                        (x0, x1), (y0, y1)),
     ]
-    n_found, tries = 0, 0
-    while n_found < n_pillars and tries < 200:
+    pillars = []
+    tries = 0
+    while len(pillars) < n_pillars and tries < 200:
         tries += 1
         cx = rng.uniform(x0 + 2.0, x1 - 2.0)
         cy = rng.uniform(y0 + 1.5, y1 - 1.5)
@@ -91,9 +95,9 @@ def _make_world(rng, room, z_floor, z_ceil, n_pillars, traj_xy):
         d = np.hypot(traj_xy[:, 0] - cx, traj_xy[:, 1] - cy)
         if d.min() < 1.2 + max(w, h):
             continue
-        n_found += 1
         bx0, bx1 = cx - w / 2, cx + w / 2
         by0, by1 = cy - h / 2, cy + h / 2
+        pillars.append((bx0, bx1, by0, by1))
         planes += [
             _bounded_plane(rng, (bx1, 0, 0), (1, 0, 0), (0, 1, 0), (0, 0, 1),
                            (by0, by1), (z_floor, z_ceil)),
@@ -104,7 +108,7 @@ def _make_world(rng, room, z_floor, z_ceil, n_pillars, traj_xy):
             _bounded_plane(rng, (0, by0, 0), (0, -1, 0), (1, 0, 0), (0, 0, 1),
                            (bx0, bx1), (z_floor, z_ceil)),
         ]
-    return planes
+    return planes, pillars
 
 
 def _mm(a, b):
@@ -276,6 +280,38 @@ def _wheel_odom_from_traj(xs, ys, yaws, n_frames, fps, odom_rate, rng,
     return odom
 
 
+def _scan_world(pose, room, pillars, n_beams, rng, noise=0.0):
+    """2D laser scan of the room walls + pillar AABBs (robot frame), in
+    numpy as the reference computes it."""
+    x0, x1, y0, y1 = room
+    px, py = pose[0, 3], pose[1, 3]
+    yaw = np.arctan2(pose[1, 0], pose[0, 0])
+    angles = np.linspace(-np.pi, np.pi, n_beams, endpoint=False)
+    world_ang = angles + yaw
+    dx = np.cos(world_ang)
+    dy = np.sin(world_ang)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        tx = np.where(dx > 0, (x1 - px) / dx,
+                      np.where(dx < 0, (x0 - px) / dx, np.inf))
+        ty = np.where(dy > 0, (y1 - py) / dy,
+                      np.where(dy < 0, (y0 - py) / dy, np.inf))
+        t = np.minimum(tx, ty)
+        for (bx0, bx1, by0, by1) in pillars:
+            t1x = (bx0 - px) / np.where(dx == 0, 1e-12, dx)
+            t2x = (bx1 - px) / np.where(dx == 0, 1e-12, dx)
+            t1y = (by0 - py) / np.where(dy == 0, 1e-12, dy)
+            t2y = (by1 - py) / np.where(dy == 0, 1e-12, dy)
+            tnear = np.maximum(np.minimum(t1x, t2x), np.minimum(t1y, t2y))
+            tfar = np.minimum(np.maximum(t1x, t2x), np.maximum(t1y, t2y))
+            hit = (tnear <= tfar) & (tnear > 0)
+            t = np.where(hit, np.minimum(t, tnear), t)
+    if noise > 0:
+        t = t + rng.normal(scale=noise, size=t.shape)
+    rx = t * np.cos(angles)
+    ry = t * np.sin(angles)
+    return np.stack([rx, ry, np.zeros_like(rx)], axis=-1).astype(np.float32)
+
+
 def generate_textured_sequence(
     n_frames: int = 300, width: int = 320, height: int = 240,
     motion: str = "square", seed: int = 0, fps: float = 10.0,
@@ -283,10 +319,12 @@ def generate_textured_sequence(
     odom_drift_yaw: float = 0.002, room: tuple = (-3.0, 18.0, -8.0, 8.0),
     z_floor: float = -0.6, z_ceil: float = 1.4, n_pillars: int = 6,
     pixel_noise: float = 2.0, exposure_drift: float = 0.02,
-    loops: float = 1.0, speed: float | None = None, device="cuda",
+    loops: float = 1.0, speed: float | None = None, with_laser: bool = False,
+    n_beams: int = 180, laser_noise: float = 0.0, device="cuda",
 ) -> SimSequence:
     """Render a textured closed-room sequence (ray cast on ``device``, where
-    the returned camera lives too)."""
+    the returned camera lives too); with_laser adds an n_beams 2D scan a
+    frame of the walls and pillars, drawn after the wheel odometry."""
     rng = np.random.default_rng(seed)
     cam = default_camera(width, height, device)
     xs, ys, yaws = _trajectory(motion, n_frames, fps, room, loops, speed)
@@ -302,8 +340,8 @@ def generate_textured_sequence(
                                  np.zeros_like(xs), np.zeros_like(xs), yaws],
                                 -1), dtype=torch.float32)
     poses = xyzrpy_to_mat(*six.unbind(-1)).numpy().astype(np.float32)
-    planes = _make_world(rng, room, z_floor, z_ceil, n_pillars,
-                         np.stack([xs, ys], -1))
+    planes, pillars = _make_world(rng, room, z_floor, z_ceil, n_pillars,
+                                  np.stack([xs, ys], -1))
 
     t_ri = cam.t_ri.cpu().numpy().astype(np.float64)
     fx, fy = float(cam.fx), float(cam.fy)
@@ -338,12 +376,18 @@ def generate_textured_sequence(
     odom = _wheel_odom_from_traj(xs, ys, yaws, n_frames, fps, odom_rate, rng,
                                  drift_xy=odom_drift_xy,
                                  drift_yaw=odom_drift_yaw)
+    laser_scans = None
+    if with_laser:
+        laser_scans = np.stack([
+            _scan_world(poses[i], room, pillars, n_beams, rng, laser_noise)
+            for i in range(n_frames)])
     return SimSequence(left=np.stack(lefts), right=np.stack(rights),
                        stamps=stamps, poses=poses, wheel_odom=odom,
-                       camera=cam)
+                       camera=cam, laser_scans=laser_scans,
+                       room=room if with_laser else None)
 
 
-_SIM_CACHE_TAG = "visfs_tpu_torch-sim-1"
+_SIM_CACHE_TAG = "visfs_tpu_torch-sim-2"  # 2: laser scans and room
 
 
 def cached_textured_sequence(cache_dir=None, **kwargs) -> SimSequence:
@@ -365,14 +409,18 @@ def cached_textured_sequence(cache_dir=None, **kwargs) -> SimSequence:
             return SimSequence(
                 left=z["left"].astype(np.float32),
                 right=z["right"].astype(np.float32), stamps=z["stamps"],
-                poses=z["poses"], wheel_odom=z["wheel_odom"], camera=cam)
+                poses=z["poses"], wheel_odom=z["wheel_odom"], camera=cam,
+                laser_scans=z["laser_scans"] if "laser_scans" in z else None,
+                room=tuple(z["room"]) if "room" in z else None)
     seq = generate_textured_sequence(device=device, **kwargs)
     left = np.clip(seq.left, 0, 255).astype(np.uint8)
     right = np.clip(seq.right, 0, 255).astype(np.uint8)
     os.makedirs(cache_dir, exist_ok=True)
     tmp = path + ".tmp.npz"
+    laser = {} if seq.laser_scans is None else dict(
+        laser_scans=seq.laser_scans, room=np.asarray(seq.room))
     np.savez_compressed(tmp, left=left, right=right, stamps=seq.stamps,
-                        poses=seq.poses, wheel_odom=seq.wheel_odom)
+                        poses=seq.poses, wheel_odom=seq.wheel_odom, **laser)
     os.replace(tmp, path)
     return seq._replace(left=left.astype(np.float32),
                         right=right.astype(np.float32))

@@ -1,12 +1,14 @@
-"""Back-end estimator stage (torch port of visfs_tpu.slam.estimator, for
-SensorStrategy 0; the laser blocks are not ported).
+"""Back-end estimator stage (torch port of visfs_tpu.slam.estimator,
+SensorStrategies 0 and 2-5).
 
 Initial transform from PnP RANSAC (or the wheel delta, strategy >= 2),
-window insertion and the keyframe decision, BA problem assembly, the
-post-BA inlier re-gate, the wheel-tolerance override, Force3DoF, LocalMap
-write-back with outlier-edge removal and error-vertex blocking, and the
-velocity guess.  ``marginalize`` slides the window at the start of the
-next step.
+window insertion and the keyframe decision, the laser pretreatment
+(strategy >= 3), BA problem assembly (strategies 4/5 scan-match the newest
+pose and drop the visual observations), the post-BA inlier re-gate, the
+wheel-tolerance override, Force3DoF, the submap insertion at the fused pose
+(strategy >= 3), LocalMap write-back with outlier-edge removal and
+error-vertex blocking, and the velocity guess.  ``marginalize`` slides the
+window at the start of the next step.
 """
 
 from __future__ import annotations
@@ -17,11 +19,14 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..core.camera import StereoCamera
+from ..map2d.submap import (ActiveSubmaps2D, has_matching_submap,
+                            insert_range_data_active, matching_grid)
 from ..core.lie import (flatten_3dof, mat_apply, mat_inv_se3, mat_to_quat,
                         mat_to_xyzrpy, se3_matrix)
 from ..ops import pnp
 from ..solver import ba
 from ..solver.factors import StereoIntrinsics
+from . import laser as laser_mod
 from .state import I32, FeatureTable, KeyframeCounters, VOState, WindowState
 from .tracker import TrackerOutput
 
@@ -40,6 +45,18 @@ class EstimatorSettings:
     max_features: int = 300
     min_parallax: float = 60.0
     min_translation: float = 0.5
+    # Laser fusion (strategies >= 3)
+    min_laser_range: float = 0.1
+    max_laser_range: float = 30.0
+    missing_data_ray_length: float = 5.0
+    laser_covariance: float = 0.1
+    # Estimator/NumSubDivisionPreScan: rolling-scan de-skew buckets
+    num_subdivisions: int = 5
+    num_range_data: int = 90  # Map/2dNumRangeData
+    insert_free_space: bool = True
+    # Fixed per-ray supercover sample budget; System.init sizes it to cover
+    # the longest ray (~2*range/resolution cells) within the submap extent.
+    raycast_samples: int = 128
 
 
 class EstimatorContext(NamedTuple):
@@ -62,6 +79,7 @@ class EstimatorContext(NamedTuple):
     wheel_pose_eff: torch.Tensor
     wheel_valid_eff: torch.Tensor
     n_matches: torch.Tensor
+    scan: object = None  # laser.PretreatedScan (strategies >= 3) or None
 
 
 class EstimatorResult(NamedTuple):
@@ -82,6 +100,7 @@ class EstimatorResult(NamedTuple):
     blocked_uv: torch.Tensor
     blocked_valid: torch.Tensor
     covariance: torch.Tensor
+    laser: object = None  # updated LaserState (strategies >= 3)
 
 
 def keyframe_update(c: KeyframeCounters, n_new, transform, transform_ok,
@@ -131,10 +150,18 @@ def _set_row(a, i: int, value):
     return a
 
 
+def _uses_laser(cfg: EstimatorSettings, state: VOState, scan) -> bool:
+    return (cfg.sensor_strategy >= 3 and state.laser is not None
+            and scan is not None)
+
+
 def estimator_prepare(state: VOState, trk: TrackerOutput, stamp, wheel_pose,
                       wheel_valid, guess_delta, cam: StereoCamera,
-                      cfg: EstimatorSettings, rng_key
+                      cfg: EstimatorSettings, rng_key, scan_points=None,
+                      scan_mask=None, scan_times=None
                       ) -> Tuple[ba.BAProblem, EstimatorContext]:
+    """scan_points [K, 3] laser-frame, scan_mask [K], scan_times [K]
+    (offsets <= 0, newest 0) for strategies >= 3."""
     W = trk.features.window
     cur, prev = W - 1, W - 2
     features = trk.features
@@ -216,6 +243,18 @@ def estimator_prepare(state: VOState, trk: TrackerOutput, stamp, wheel_pose,
         state.counters, trk.n_new, transform, transform_ok, parallax_mean,
         cfg.max_features, cfg.min_translation, cfg.min_parallax)
 
+    # 2b. Laser pretreatment (Estimator.cpp:203-207), de-skewed with the
+    # carried velocity guess (zero when invalid: no compensation).
+    scan = None
+    if _uses_laser(cfg, state, scan_points):
+        vel = torch.where(state.velocity_valid, state.velocity,
+                          torch.zeros_like(state.velocity))
+        scan = laser_mod.pretreat(
+            scan_points, scan_mask, state.laser.t_laser_robot,
+            cfg.min_laser_range, cfg.max_laser_range,
+            cfg.missing_data_ray_length, times=scan_times, velocity6=vel,
+            n_subdivisions=cfg.num_subdivisions)
+
     # 3. Local BA problem (Estimator.cpp:215-315).
     map_available = (torch.sum(window.valid) >= 2) & (
         torch.sum(features.valid) >= cfg.min_inliers)
@@ -236,15 +275,34 @@ def estimator_prepare(state: VOState, trk: TrackerOutput, stamp, wheel_pose,
     obs3 = torch.stack([features.uv[..., 0], features.uv[..., 1],
                         features.uv[..., 0] - disparity], dim=-1)
     pose_fixed = ~window.valid | (torch.arange(W, device=dev) == W - 2)
+
+    # Laser-only strategies (4/5) drop the visual observations and
+    # scan-match the newest pose against the matching submap
+    # (Estimator.cpp:243-250).
+    ba_obs_mask = features.obs_mask & lm_ba[:, None]
+    laser_data = None
+    if scan is not None and cfg.sensor_strategy in (4, 5):
+        submaps = state.laser.submaps
+        grid = matching_grid(submaps)
+        laser_data = ba.LaserData(
+            points=scan.returns,
+            mask=scan.returns_mask & has_matching_submap(submaps),
+            cost_grid=state.laser.cost_table[grid.cells.long()],
+            resolution=grid.limits.resolution, max_x=grid.limits.max_x,
+            max_y=grid.limits.max_y, t_ir=cam.t_ir,
+            info=torch.full((), 1.0 / cfg.laser_covariance, dtype=dtype,
+                            device=dev))
+        ba_obs_mask = torch.zeros_like(ba_obs_mask)
     problem = ba.BAProblem(
         pose_q=tcw_q, pose_t=tcw_t, pose_valid=window.valid,
         pose_fixed=pose_fixed, lm_pos=features.pw, lm_valid=lm_ba,
         lm_fixed=features.stable, obs=obs3,
-        obs_mask=features.obs_mask & lm_ba[:, None],
+        obs_mask=ba_obs_mask,
         link_q=mat_to_quat(link_mat[..., :3, :3]), link_t=link_mat[..., :3, 3],
         link_mask=link_mask,
         intr=StereoIntrinsics(fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy,
                               bf=bf),
+        laser=laser_data,
     )
     ctx = EstimatorContext(
         features=features, window=window, counters=counters,
@@ -253,7 +311,7 @@ def estimator_prepare(state: VOState, trk: TrackerOutput, stamp, wheel_pose,
         lm_ba=lm_ba, bootstrap=bootstrap, sig_pose=sig_pose,
         pose_mat=pose_mat, prev_wheel_mat=prev_wheel_mat,
         wheel_pose_eff=wheel_pose_eff, wheel_valid_eff=wheel_valid_eff,
-        n_matches=n_matches,
+        n_matches=n_matches, scan=scan,
     )
     return problem, ctx
 
@@ -309,6 +367,29 @@ def estimator_finalize(state: VOState, ctx: EstimatorContext,
     if cfg.force_3dof:
         current_global = flatten_3dof(current_global)
         transform = flatten_3dof(transform)
+
+    # 5b. Submap insertion at the fused global pose (Estimator.cpp:377-388).
+    laser_state = state.laser
+    scan = ctx.scan
+    if _uses_laser(cfg, state, scan):
+        # On bootstrap without a transform, current_global is the zero
+        # matrix: place the scan at the signature pose (pose_mat on frame 0).
+        pose_for_map = torch.where(
+            transform_ok, current_global,
+            torch.where(ctx.bootstrap, ctx.sig_pose, pose_mat))
+        new_submaps = insert_range_data_active(
+            laser_state.submaps, mat_apply(pose_for_map, scan.origin)[:2],
+            mat_apply(pose_for_map, scan.returns)[:, :2], scan.returns_mask,
+            mat_apply(pose_for_map, scan.misses)[:, :2], scan.misses_mask,
+            laser_state.hit_table, laser_state.miss_table,
+            num_range_data_limit=cfg.num_range_data,
+            samples=cfg.raycast_samples,
+            insert_free_space=cfg.insert_free_space)
+        do_insert = (transform_ok | ctx.bootstrap) \
+            & torch.any(scan.returns_mask)
+        laser_state = laser_state._replace(submaps=ActiveSubmaps2D(*[
+            torch.where(do_insert, new, old)
+            for new, old in zip(new_submaps, laser_state.submaps)]))
 
     # 6. LocalMap write-back (updateLocalMap).
     do_update = ba_ok & torch.all(window.valid) & transform_ok
@@ -377,7 +458,7 @@ def estimator_finalize(state: VOState, ctx: EstimatorContext,
         velocity_valid=~lost & (dt > 0), n_matches=ctx.n_matches,
         n_inliers=n_inliers, ba_chi2=res_ba.chi2, ba_ok=ba_ok,
         blocked_uv=blocked_uv, blocked_valid=blocked_valid,
-        covariance=covariance,
+        covariance=covariance, laser=laser_state,
     )
 
 

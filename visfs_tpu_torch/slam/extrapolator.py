@@ -27,6 +27,33 @@ def add_odometry(buf: OdomBuffer, stamp, pose6, vel6) -> OdomBuffer:
                       valid=buf.valid | slot, head=buf.head + 1)
 
 
+def add_odometry_batch(odom: OdomBuffer, rows) -> OdomBuffer:
+    """Push the valid rows of ``rows`` [K, 14] = (stamp, pose6, vel6,
+    valid) into the ring buffer in order, equivalent to one add_odometry
+    per valid row (the reference's scan of them): each slot takes the last
+    valid row that lands on it (a scatter-max of row numbers,
+    deterministic), head moves by the count."""
+    C = odom.stamp.shape[0]
+    valid = rows[:, 13] > 0.5
+    rank = torch.cumsum(valid.to(torch.int64), 0) - 1
+    slot = torch.remainder(odom.head.to(torch.int64) + rank, C)
+    slot = torch.where(valid, slot, torch.full_like(slot, C))
+    order = torch.arange(rows.shape[0], device=rows.device)
+    winner = torch.full((C + 1,), -1, dtype=torch.int64, device=rows.device)
+    winner.scatter_reduce_(0, slot, order, reduce="amax")
+    winner = winner[:C]
+    took = winner >= 0
+    src = rows[torch.clamp(winner, min=0)]
+
+    def put(a, v):
+        return torch.where(took.reshape((-1,) + (1,) * (a.dim() - 1)), v, a)
+
+    return odom._replace(
+        stamp=put(odom.stamp, src[:, 0]), pose=put(odom.pose, src[:, 1:7]),
+        velocity=put(odom.velocity, src[:, 7:13]), valid=odom.valid | took,
+        head=odom.head + torch.sum(valid).to(odom.head.dtype))
+
+
 def predict_align_pose(buf: OdomBuffer, stamp, wheel_freq: int):
     """Aligned global wheel pose at ``stamp`` -> (pose6, valid), with the
     reference's timing sanity gates (Extrapolator.cpp:203-219)."""

@@ -3,9 +3,10 @@ visfs_tpu.slam.state).
 
 The NamedTuples carry the reference's field names and dtypes (int32 ids and
 counters, bool masks, float32 values; the PRNG key is two uint32 words held
-in int64).  ``state_from_numpy`` / ``state_to_numpy`` convert to and from a
-reference ``VOState`` fetched to numpy, so both engines can be handed the
-same mid-sequence state.
+in int64; the occupancy cells and update tables' uint16 values in int32).
+``state_from_numpy`` / ``state_to_numpy`` convert to and from a reference
+``VOState`` fetched to numpy, laser state included, so both engines can be
+handed the same mid-sequence state.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ import numpy as np
 import torch
 
 from ..core import prng
+from ..map2d import probability_values as pv
+from ..map2d.submap import ActiveSubmaps2D, init_active_submaps
 
 F32 = torch.float32
 I32 = torch.int32
@@ -71,6 +74,16 @@ class OdomBuffer(NamedTuple):
     head: torch.Tensor  # int32 next write slot
 
 
+class LaserState(NamedTuple):
+    """Laser fusion state (strategies >= 3): active submaps + tables."""
+
+    submaps: ActiveSubmaps2D
+    hit_table: torch.Tensor  # [32768] int32 (uint16 values)
+    miss_table: torch.Tensor
+    cost_table: torch.Tensor  # [65536] f32 value -> correspondence cost
+    t_laser_robot: torch.Tensor  # [4, 4] laser -> robot extrinsic
+
+
 class VOState(NamedTuple):
     features: FeatureTable
     window: WindowState
@@ -94,7 +107,7 @@ class VOState(NamedTuple):
     blocked_uv: torch.Tensor  # [B, 2] blocked-word positions
     blocked_valid: torch.Tensor  # [B] bool
     rng_key: torch.Tensor  # [2] int64 holding the uint32 threefry key
-    laser: None = None  # laser fusion (strategies >= 3) is not ported
+    laser: LaserState | None = None  # strategies >= 3
     # Previous left image's LK pyramid: per level (padded image, gx, gy).
     prev_pyr: tuple = ()
 
@@ -152,6 +165,19 @@ def init_window(window: int, device) -> WindowState:
     )
 
 
+def init_laser_state(resolution: float, extent_cells: int,
+                     hit_probability: float, miss_probability: float,
+                     t_laser_robot=None, *, device) -> LaserState:
+    hit, miss = pv.hit_miss_tables(hit_probability, miss_probability, device)
+    t = (torch.eye(4, dtype=F32, device=device) if t_laser_robot is None
+         else torch.as_tensor(np.asarray(t_laser_robot), dtype=F32,
+                              device=device))
+    return LaserState(
+        submaps=init_active_submaps(resolution, extent_cells, device),
+        hit_table=hit, miss_table=miss, cost_table=pv.cost_table(device),
+        t_laser_robot=t)
+
+
 def init_pyramid_state(height: int, width: int, pad: int, max_level: int,
                        device) -> tuple:
     """Zero-filled carried LK pyramid shaped like ops.lk.build_lk_pyramid
@@ -168,8 +194,8 @@ def init_pyramid_state(height: int, width: int, pad: int, max_level: int,
 
 def init_state(height: int, width: int, capacity: int, window: int, *,
                device, odom_capacity: int = 64, blocked_capacity: int = 64,
-               seed: int = 0, lk_pad: int = 12,
-               lk_max_level: int = 3) -> VOState:
+               seed: int = 0, laser: LaserState | None = None,
+               lk_pad: int = 12, lk_max_level: int = 3) -> VOState:
     def z(*shape, dtype=F32):
         return torch.zeros(shape, dtype=dtype, device=device)
 
@@ -194,7 +220,7 @@ def init_state(height: int, width: int, capacity: int, window: int, *,
         blocked_uv=z(blocked_capacity, 2),
         blocked_valid=z(blocked_capacity, dtype=b),
         rng_key=prng.PRNGKey(seed, device=device),
-        laser=None,
+        laser=laser,
         prev_pyr=init_pyramid_state(height, width, lk_pad, lk_max_level,
                                     device),
     )
@@ -206,7 +232,8 @@ def init_state(height: int, width: int, capacity: int, window: int, *,
 
 _NP_TO_TORCH = {np.dtype(np.float32): F32, np.dtype(np.float64): F32,
                 np.dtype(np.int32): I32, np.dtype(np.bool_): torch.bool,
-                np.dtype(np.uint32): torch.int64}
+                np.dtype(np.uint32): torch.int64,
+                np.dtype(np.uint16): I32}
 
 
 def _to_torch(x, device):
@@ -223,17 +250,48 @@ def _to_numpy(t):
     return a.astype(np.uint32) if t.dtype == torch.int64 else a
 
 
+def _to_uint16(t):
+    """int32 codec values back to the reference's uint16 (exact)."""
+    return t.detach().cpu().numpy().astype(np.uint16)
+
+
 def _convert(cls, src, leaf):
     return cls(**{f: (None if getattr(src, f) is None
                       else leaf(getattr(src, f)))
                   for f in cls._fields})
 
 
+def _laser_from_numpy(la, device):
+    if la is None:
+        return None
+
+    def leaf(x):
+        return _to_torch(x, device)
+
+    return LaserState(submaps=_convert(ActiveSubmaps2D, la.submaps, leaf),
+                      hit_table=leaf(la.hit_table),
+                      miss_table=leaf(la.miss_table),
+                      cost_table=leaf(la.cost_table),
+                      t_laser_robot=leaf(la.t_laser_robot))
+
+
+def _laser_to_numpy(la):
+    if la is None:
+        return None
+    sub = _convert(ActiveSubmaps2D, la.submaps, _to_numpy)
+    return LaserState(submaps=sub._replace(cells=_to_uint16(la.submaps.cells)),
+                      hit_table=_to_uint16(la.hit_table),
+                      miss_table=_to_uint16(la.miss_table),
+                      cost_table=_to_numpy(la.cost_table),
+                      t_laser_robot=_to_numpy(la.t_laser_robot))
+
+
+_NESTED = ("features", "window", "counters", "odom", "laser", "prev_pyr")
+
+
 def state_from_numpy(s, device) -> VOState:
     """Port VOState (on ``device``) from a reference VOState whose leaves are
-    numpy arrays (``jax.device_get(state)``); strategy-0 states only."""
-    if getattr(s, "laser", None) is not None:
-        raise NotImplementedError("laser state is not ported")
+    numpy arrays (``jax.device_get(state)``), laser state included."""
 
     def leaf(x):
         return _to_torch(x, device)
@@ -244,24 +302,22 @@ def state_from_numpy(s, device) -> VOState:
         counters=_convert(KeyframeCounters, s.counters, leaf),
         odom=_convert(OdomBuffer, s.odom, leaf),
         **{f: leaf(getattr(s, f)) for f in VOState._fields
-           if f not in ("features", "window", "counters", "odom", "laser",
-                        "prev_pyr")},
-        laser=None,
+           if f not in _NESTED},
+        laser=_laser_from_numpy(getattr(s, "laser", None), device),
         prev_pyr=tuple(tuple(leaf(p) for p in lv) for lv in s.prev_pyr),
     )
 
 
 def state_to_numpy(s: VOState) -> VOState:
     """The same state with numpy leaves in the reference's dtypes (the
-    PRNG key back to uint32)."""
+    PRNG key back to uint32, cells and update tables to uint16)."""
     return VOState(
         features=_convert(FeatureTable, s.features, _to_numpy),
         window=_convert(WindowState, s.window, _to_numpy),
         counters=_convert(KeyframeCounters, s.counters, _to_numpy),
         odom=_convert(OdomBuffer, s.odom, _to_numpy),
         **{f: _to_numpy(getattr(s, f)) for f in VOState._fields
-           if f not in ("features", "window", "counters", "odom", "laser",
-                        "prev_pyr")},
-        laser=None,
+           if f not in _NESTED},
+        laser=_laser_to_numpy(s.laser),
         prev_pyr=tuple(tuple(_to_numpy(p) for p in lv) for lv in s.prev_pyr),
     )

@@ -1,9 +1,10 @@
 """Sliding-window local bundle adjustment: masked dense Schur GN/LM solver
-(torch port of visfs_tpu.solver.ba, without the laser terms).
+(torch port of visfs_tpu.solver.ba).
 
 Poses are ``P`` window slots of inverse camera poses Tcw, landmarks ``L``
 table slots of world points; stereo edges live on the dense [L, P] grid,
-wheel-odometry links between consecutive slots.  Landmarks are eliminated
+wheel-odometry links between consecutive slots, and (strategies 4/5) the
+occupied-space scan-match terms on the newest pose.  Landmarks are eliminated
 on 3x3 blocks (Schur complement), the [6P, 6P] pose system is solved by
 Cholesky.  Two passes of iterations/2 LM steps; between them, edges with
 chi2 > robustKernelDelta are demoted and reported as outliers.  Every
@@ -20,6 +21,7 @@ import torch
 from .factors import (StereoIntrinsics, apply_tangent, huber_weight, inv3x3,
                       pose_link_jacobians, pose_link_residual,
                       stereo_jacobians, stereo_residual)
+from .occupied_space import occupied_space_terms
 
 # Landmark update larger than this is rejected (g2o write-back gate).
 _MAX_POINT_MOTION = 5.0
@@ -27,6 +29,20 @@ _MAX_POINT_MOTION = 5.0
 _MAX_CHI2 = 1.0e12
 # Per-pose tangent step larger than this (m/rad) is dropped.
 _MAX_POSE_STEP = 2.0
+
+
+class LaserData(NamedTuple):
+    """Occupied-space scan-match terms on the newest pose (strategies 4/5;
+    Optimizer.cpp:226-258)."""
+
+    points: torch.Tensor  # [K, 3] robot-frame scan hits
+    mask: torch.Tensor  # [K] bool
+    cost_grid: torch.Tensor  # [E, E] f32 costs of the matching submap
+    resolution: torch.Tensor  # scalar
+    max_x: torch.Tensor  # scalar
+    max_y: torch.Tensor  # scalar
+    t_ir: torch.Tensor  # [4, 4] robot -> image transform
+    info: torch.Tensor  # scalar 1/laserCovariance
 
 
 class BAProblem(NamedTuple):
@@ -45,6 +61,7 @@ class BAProblem(NamedTuple):
     link_t: torch.Tensor  # [P-1, 3]
     link_mask: torch.Tensor  # [P-1] bool
     intr: StereoIntrinsics
+    laser: LaserData | None = None  # None: no laser terms
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,9 +101,17 @@ def _link_terms(problem: BAProblem, pose_q, pose_t):
             problem.link_t)
 
 
+def _laser_terms(problem: BAProblem, pose_q, pose_t):
+    """(r [K], J [K, 6], w [K]) of the scan points on the newest pose."""
+    la = problem.laser
+    return occupied_space_terms(pose_q[-1], pose_t[-1], la.points, la.mask,
+                                la.cost_grid, la.resolution, la.max_x,
+                                la.max_y, la.t_ir, la.info)
+
+
 def _robust_chi2_total(problem: BAProblem, lm_pos, pose_q, pose_t,
                        active_mask, settings: BASettings):
-    """activeRobustChi2: huberized stereo chi2 + link chi2."""
+    """activeRobustChi2: huberized stereo chi2 + link chi2 (+ laser)."""
     _, _, chi2 = _stereo_terms(problem, lm_pos, pose_q, pose_t, active_mask,
                                settings)
     d = settings.robust_delta
@@ -100,7 +125,11 @@ def _robust_chi2_total(problem: BAProblem, lm_pos, pose_q, pose_t,
     r_link = pose_link_residual(*_link_terms(problem, pose_q, pose_t))
     link_chi2 = (1.0 / settings.odometry_covariance) * torch.sum(
         r_link * r_link, dim=-1)
-    return total + torch.sum(link_chi2 * problem.link_mask)
+    total = total + torch.sum(link_chi2 * problem.link_mask)
+    if problem.laser is not None:
+        r_l, _, w_l = _laser_terms(problem, pose_q, pose_t)
+        total = total + torch.sum(w_l * r_l * r_l)
+    return total
 
 
 def _gn_normal_equations(problem: BAProblem, lm_pos, pose_q, pose_t,
@@ -141,6 +170,12 @@ def _gn_normal_equations(problem: BAProblem, lm_pos, pose_q, pose_t,
     g_links = torch.zeros((P, 6), dtype=pose_t.dtype, device=pose_t.device)
     g_links[lo] -= (torch.swapaxes(wJ1, -1, -2) @ r_link[..., None])[..., 0]
     g_links[hi] -= (torch.swapaxes(wJ2, -1, -2) @ r_link[..., None])[..., 0]
+    if problem.laser is not None:
+        # laser terms on the newest pose (strategies 4/5)
+        r_l, J_l, w_l = _laser_terms(problem, pose_q, pose_t)
+        wJ_l = w_l[:, None] * J_l
+        H[P - 1, :, P - 1, :] += wJ_l.T @ J_l
+        g_links[P - 1] -= wJ_l.T @ r_l
 
     n_obs = torch.sum(active_mask, dim=1)
     lm_free = problem.lm_valid & ~problem.lm_fixed & (n_obs >= 1)
