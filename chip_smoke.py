@@ -14,12 +14,15 @@ Phases (each prints its lines; any failure exits non-zero without the final
                 (flow within 0.05 px, ok identical, min_eig rtol 1e-3),
                 and its pyramid entry, one bidirectional track over all
                 levels per launch (points within 0.05 px, status
-                identical, err rtol 1e-3); the kernel's device time per
-                launch (median of a torch.profiler trace), the CUDA-event
-                time of a wrapper call and of the plain version, and the
-                bound of each launch; and the device time of one step
-                (the one-level entry at level 0 with eps = 0, run for 1
-                and for 30 steps);
+                identical, err rtol 1e-3), and one-way (FlowBack off, as
+                configs/sim_localization.yaml runs it) at N = 200 and 400,
+                the temporal and stereo tracks at its 200 features, with
+                the same gates; the kernel's device time per launch
+                (median of a torch.profiler trace), the CUDA-event time of
+                a wrapper call and of the plain version, and the bound of
+                each launch; and the device time of one step (the
+                one-level entry at level 0 with eps = 0, run for 1 and for
+                30 steps);
   4. k2       — the xcorr loop kernel (K2) against its plain versions on
                 the same pair and points: its one-level entry on the maps
                 and scalars of the real jnp level setup, all four levels
@@ -34,12 +37,15 @@ Phases (each prints its lines; any failure exits non-zero without the final
                 yardstick of the map stage; the port never calls it);
   5. main     — the stereo VO main path: System(bench parameters,
                 device="cuda") over the 300-frame 640x480 textured square
-                loop rendered on the card, frames 0-1 then a timed loop over
-                frames 2-299; gate ATE <= 0.15 m, 0 lost, 2 launches of
-                K1's pyramid entry (the temporal and the stereo track), 0
-                of its one-level entry and 0 of either K2 entry per frame,
-                0 host syncs; fps and a stage split;
-  6. xcorr    — the same loop with lk_params backend="jnp",
+                loop rendered on the card (with its depth, for phase rgbd),
+                frames 0-1 then a timed loop over frames 2-299; gate ATE <=
+                0.15 m, 0 lost, 2 launches of K1's pyramid entry (the
+                temporal and the stereo track), 0 of its one-level entry
+                and 0 of either K2 entry per frame, 0 host syncs; fps and a
+                stage split; then (profile) frames 2-11 of a fresh System
+                with profile_stages=True, each step as four synced stages,
+                the medians of the time_* fields printed, not gated;
+  6. xcorr    — the loop's first 120 frames with lk_params backend="jnp",
                 iter_mode="xcorr" (the jnp level in correlation form): the
                 same gates with 2 launches of K2's pyramid entry, 0 of its
                 one-level entry and 0 of either K1 entry per frame;
@@ -57,30 +63,64 @@ Phases (each prints its lines; any failure exits non-zero without the final
                 free-space probes); fps, a stage split, the submap
                 insertion's device time per call (profiler) and the kernels
                 a frame at strategies 0 and 3 (profiler);
-  8. small    — the System on "cuda" and "cpu" over 8 frames at 160x120, at
+  8. mapping  — configs/sim_mapping.yaml's visfs block verbatim
+                (SensorStrategy 3 with CLAHE, NumRangeDataLimit 60,
+                MaxLaserRange 30) over phase s3's 120-frame sequence and
+                feed, with phase s3's gates;
+  9. loc_cull — configs/sim_localization.yaml's visfs block verbatim
+                (FlowBack off, 200 features) with Tracker/
+                CullByFundationMatrix and FundationPixelError 2.0 over the
+                main loop's first 120 frames: ATE <= 0.15 m, 0 lost,
+                exactly 2 one-way launches of K1's pyramid entry a frame
+                and 0 of every other entry, 0 host syncs (the cull's
+                sync-free eigensolvers); the features the cull rejects
+                each frame printed;
+ 10. rgbd     — the bench parameters with SensorStrategy 1, fed the left
+                images and the ray-cast depth of the main loop's first 120
+                frames: ATE <= 0.15 m, 0 lost, exactly 1 (bidirectional)
+                launch of K1's pyramid entry a frame (the temporal track;
+                depth replaces the stereo track) and 0 of every other
+                entry, 0 host syncs;
+ 11. small    — the System on "cuda" and "cpu" over 8 frames at 160x120, at
                 K1 (the System's default), xcorr, and the reference System's
-                own LK configuration (backend="jnp", direct iteration): per
-                frame translation within 1e-3 m, yaw within 1e-3 rad,
-                inliers within 1, identical lost flags.  The same free
-                running at strategies 2 (wheel rows) and 3 (wheel rows and
-                scans), and at 3 then identical slot_valid, num_range_data
-                and finished, max_xy within 1e-4 m, at most 0.1 % of the
-                known cells different.  Free running, float-level noise
-                moves the reference itself by centimetres at strategy 4
-                and decimetres at 5 (reference_laser_noise.py), so there
-                each frame is stepped on "cuda" from the "cpu" run's state:
-                at 4 (wheel rows and scans) held as 3 is; at 5 (scans, no
-                wheel rows: PnP and the laser-only BA) identical lost flags
-                and inliers within 1, the BA problems within 1e-3 m and
-                1e-3 rad and their cost grids identical, the "cpu" problem
-                solved in float64 on both devices within 1e-3 m and 1e-3
-                rad, the "cpu" step's submap insertion replayed on "cuda"
-                within the submap gates, slots, counts and finished flags
-                identical; the float32 gaps (the step's, the same problem
-                solved on both devices, the "cpu" solve under one ulp of
-                the problem) and the cells printed.
-The kernels JSON line, the nvidia-smi line and the final
-{"ok": true, "device": ...} line close the output.
+                own LK configuration (backend="jnp", direct iteration),
+                SensorStrategy 1 on the ray-cast depth, CLAHE, and
+                configs/sim_localization.yaml's block (its MinDistance
+                scaled to the width) without and with the cull: per frame
+                translation within 1e-3 m, yaw within 1e-3 rad, inliers
+                within 1, identical lost flags.  The same free running at
+                strategies 2 (wheel rows) and 3 (wheel rows and scans;
+                also with CLAHE), and at 3 then identical slot_valid,
+                num_range_data and finished, max_xy within 1e-4 m, at most
+                0.1 % of the known cells different.  Free running,
+                float-level noise moves the reference itself by
+                centimetres at strategy 4 and decimetres at 5
+                (reference_laser_noise.py), so there each frame is stepped
+                on "cuda" from the "cpu" run's state: at 4 (wheel rows and
+                scans) held as 3 is; at 5 (scans, no wheel rows: PnP and
+                the laser-only BA) inliers within 1 and identical lost
+                flags (where they differ, "cuda"'s (inliers, lost) must be
+                that of a "cpu" step under one of 16 random one-ulp nudges
+                of its state, and what follows is held against the first
+                such step, tests/test_torch_s5_edge.py), the BA problems
+                within 1e-3 m and 1e-3 rad and their cost grids identical,
+                the "cpu" problem solved in float64 on both devices within
+                1e-3 m and 1e-3 rad, the "cpu" step's submap insertion
+                replayed on "cuda" within the submap gates, slots, counts
+                and finished flags identical; the float32 gaps (the step's,
+                the same problem solved on both devices, the "cpu" solve
+                under one ulp of the problem) and the cells printed.  Then
+                clahe itself on "cuda" against "cpu" on one 640x480 frame,
+                within 1e-3 levels;
+ 12. cull     — cull_with_fundamental on "cuda" against "cpu" on
+                tests/test_fundamental.py's outlier scene and key (seed 42,
+                20 gross outliers of 120, key 0, threshold 1.5, 64
+                hypotheses): identical inlier masks, every gross outlier
+                rejected.
+Each phase's seconds are printed, and the profiler traces each kernel row
+took (a trace may come back without its device records).  The kernels JSON
+line, the nvidia-smi line and the final {"ok": true, "device": ...} line
+close the output.
 
 A kernel's "ms" (device time), "plain_ms" and "bound_ms" in the kernels
 line are one frame's worth of its launches: for each of K1 and K2, its
@@ -138,6 +178,14 @@ K2_STEP_FLOPS = 40
 K2_SETUP_FLOPS_PER_SAMPLE = 31
 K2_MAP_FLOPS_PER_TERM = 4
 XCORR = dict(backend="jnp", iter_mode="xcorr")
+CULL = {"Tracker/CullByFundationMatrix": True,
+        "Tracker/FundationPixelError": 2.0}  # tests/test_fundamental.py:80
+XCORR_FRAMES = 120  # phase xcorr's depth (the main loop's first frames)
+MODE_FRAMES = 120  # phases mapping, loc_cull and rgbd
+CLAHE_BOUND = 1e-3  # levels, clahe on "cuda" against "cpu"
+# phase small, strategy 5: the one-ulp nudged "cpu" steps tried on a frame
+# whose lost flags differ
+WITNESS_SEEDS = 16
 
 
 def bench_params(width):
@@ -185,20 +233,22 @@ def cuda_time_ms(fn, reps=20):
     return float(np.median(times))
 
 
-def kernel_device_ms(fn, kernel, reps=20, tries=3):
-    """Median device time of one launch of the CUDA kernel whose name holds
-    ``kernel``, from a torch.profiler trace of reps calls of fn (kernel
-    time alone: CUDA events around a call also count the wrapper's host
-    dispatch, which is longer than these kernels).  A trace may come back
-    without its device records; it is taken again, up to ``tries`` times.
-    None when no trace shows the kernel on the device."""
+def kernel_device_ms(fn, kernel, reps=20, tries=6):
+    """(ms, traces): the median device time of one launch of the CUDA
+    kernel whose name holds ``kernel``, from a torch.profiler trace of reps
+    calls of fn (kernel time alone: CUDA events around a call also count
+    the wrapper's host dispatch, which is longer than these kernels), and
+    the traces it took.  A trace may come back without its device records
+    (three in a row have); it is taken again after a second's pause, up to
+    ``tries`` times.  ms is None when no trace shows the kernel on the
+    device."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
+    for n in range(1, tries + 1):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -207,17 +257,27 @@ def kernel_device_ms(fn, kernel, reps=20, tries=3):
         us = [e.time_range.elapsed_us() for e in prof.events()
               if e.device_type == DeviceType.CUDA and kernel in e.name]
         if us:
-            return float(np.median(us)) / 1e3
-    return None
+            return float(np.median(us)) / 1e3, n
+        print(f"profiler: a trace without {kernel} on the device, taken "
+              f"again", flush=True)
+        time.sleep(1.0)
+    return None, tries
+
+
+# (kernel row, profiler traces it took), for the closing "profiler traces"
+# line
+TRACES = []
 
 
 def timed_kernel(label, call, kernel):
     """(kernel ms, call ms): the kernel's device time per launch, and the
     CUDA-event time of one wrapper call (launch and host dispatch)."""
     call_ms = cuda_time_ms(call)
-    ms = kernel_device_ms(call, kernel)
+    ms, traces = kernel_device_ms(call, kernel)
+    TRACES.append((label, traces))
     if ms is None:
-        fail(f"{label}: the profiler trace shows no {kernel} on the device")
+        fail(f"{label}: the profiler trace shows no {kernel} on the device "
+             f"in {traces} traces")
     return ms, call_ms
 
 
@@ -299,8 +359,8 @@ def make_system(System, cam, params, device, lk=None, **kw):
     return s
 
 
-def level_inputs(seq):
-    """Pyramids of frames 0 and 1 and 240 GFTT corners of frame 0."""
+def level_inputs(seq, n=240):
+    """Pyramids of frames 0 and 1 and n GFTT corners of frame 0."""
     import torch
 
     from visfs_tpu_torch.ops.gftt import gftt_detect
@@ -311,9 +371,9 @@ def level_inputs(seq):
     img1 = torch.as_tensor(seq.left[1], device="cuda")
     pyr0 = build_lk_pyramid(img0, params)
     pyr1 = build_lk_pyramid(img1, params)
-    det = gftt_detect(img0, 240, 0.01, 10)
-    if int(det.valid.sum()) < 240:
-        fail(f"levels: only {int(det.valid.sum())} corners for N = 240")
+    det = gftt_detect(img0, n, 0.01, 10)
+    if int(det.valid.sum()) < n:
+        fail(f"levels: only {int(det.valid.sum())} corners for N = {n}")
     return params, pyr0, pyr1, det.points
 
 
@@ -488,10 +548,31 @@ def phase_k1(seq, lk_mod):
 
     # the pyramid entry: one bidirectional track of N features per launch,
     # seeded at the points themselves (as the stereo track is)
-    pkw = dict(kw, max_level=params.max_level, bidirectional=True,
+    ptot = k1_pyramid_rows(lk_mod, pyr0, pyr1, points, (120, 240), kw,
+                           params.max_level, True)
+    # one-way, as FlowBack off runs it (configs/sim_localization.yaml, 200
+    # features: the temporal track at N = 200, the stereo track at 400)
+    _, pyr0, pyr1, points = level_inputs(seq, 400)
+    k1_pyramid_rows(lk_mod, pyr0, pyr1, points, (200, 400), kw,
+                    params.max_level, False)
+    return ptot
+
+
+def k1_pyramid_rows(lk_mod, pyr0, pyr1, points, sizes, kw, max_level,
+                    bidirectional):
+    """K1's pyramid entry against its plain version, one track of N
+    features per launch for N in sizes, seeded at the points: points within
+    0.05 px, status identical, err rtol 1e-3; device, call, plain and bound
+    times.  Prints the rows and one frame's totals (one launch a size);
+    returns the totals."""
+    import torch
+
+    dev = points.device
+    pkw = dict(kw, max_level=max_level, bidirectional=bidirectional,
                fb_threshold=1.5)
+    way = "bidirectional" if bidirectional else "one-way"
     pyr_rows = []
-    for n in (120, 240):
+    for n in sizes:
         pts = points[:n].contiguous()
         args = (pyr0, pyr1, pts, pts,
                 torch.ones(n, dtype=torch.bool, device=dev))
@@ -501,15 +582,15 @@ def phase_k1(seq, lk_mod):
         torch.cuda.synchronize()
         err = float((pk - pp).abs().max())
         if not err <= 0.05:
-            fail(f"k1 pyramid N={n}: points max|d| {err:.4g} px")
+            fail(f"k1 pyramid {way} N={n}: points max|d| {err:.4g} px")
         if not torch.equal(sk, sp):
-            fail(f"k1 pyramid N={n}: status differs in "
+            fail(f"k1 pyramid {way} N={n}: status differs in "
                  f"{int((sk != sp).sum())} features")
         np.testing.assert_allclose(ek.cpu().numpy(), ep.cpu().numpy(),
                                    rtol=1e-3, atol=1e-6)
         ms, call_ms = timed_kernel(
-            f"k1 pyramid N={n}", lambda: lk_mod.lk_pyramid_cuda(*args, **pkw),
-            "lk_pyr_kernel")
+            f"k1 pyramid {way} N={n}",
+            lambda: lk_mod.lk_pyramid_cuda(*args, **pkw), "lk_pyr_kernel")
         plain_ms = cuda_time_ms(
             lambda: lk_mod.lk_pyramid_reference(*args, **pkw), reps=3)
         # bytes: each plane's pixels once over both directions, the setup
@@ -517,13 +598,14 @@ def phase_k1(seq, lk_mod):
         # err), the vectors and outputs once; max_chain_steps: the most
         # steps one feature runs over its levels and directions, the chain
         # of the slowest block
-        fwd0 = params.max_level
+        fwd0 = max_level
         pix_bytes, flops = k1_work(
             [dict(lv, setup=lv["active"] | (k == fwd0))
-             for k, lv in enumerate(levels)], params.win_size)
+             for k, lv in enumerate(levels)], kw["win"])
         n_bytes = pix_bytes + nbytes(*args[2:], pk, sk, ek)
         bytes_ms, ops_ms = bound(n_bytes, flops)
-        pyr_rows.append(dict(n=n, entry="pyramid", levels=len(levels),
+        pyr_rows.append(dict(n=n, entry="pyramid", direction=way,
+                             levels=len(levels),
                              max_abs_err=err, ms=ms, call_ms=call_ms,
                              plain_ms=plain_ms,
                              bound_ms=max(bytes_ms, ops_ms),
@@ -536,11 +618,12 @@ def phase_k1(seq, lk_mod):
     for r in pyr_rows:
         print("k1 " + json.dumps(r), flush=True)
     ptot = frame_totals(pyr_rows, 1)
-    print(f"k1 pyramid entry: points max|d| {ptot['max_abs_err']:.3g} px at "
-          f"N = 120 and 240, status identical; one frame's 2 launches: "
-          f"kernel {ptot['ms']:.4f} ms, calls {ptot['call_ms']:.3f} ms "
-          f"(plain {ptot['plain_ms']:.3f} ms, bound {ptot['bound_ms']:.5f} ms "
-          f"by {ptot['bound_by']})", flush=True)
+    print(f"k1 pyramid entry, {way}: points max|d| "
+          f"{ptot['max_abs_err']:.3g} px at N = "
+          f"{' and '.join(map(str, sizes))}, status identical; one frame's "
+          f"{len(sizes)} launches: kernel {ptot['ms']:.4f} ms, calls "
+          f"{ptot['call_ms']:.3f} ms (plain {ptot['plain_ms']:.3f} ms, bound "
+          f"{ptot['bound_ms']:.5f} ms by {ptot['bound_by']})", flush=True)
     return ptot
 
 
@@ -710,15 +793,19 @@ def maps_yardstick(level, win):
           f"(largest entry {float(c1.abs().max()):.3g})", flush=True)
 
 
-def start_loop(seq, System, lk):
-    """The bench loop's frames on the card and a System (bench parameters,
-    lk_params replaced by lk) stepped through frames 0-1."""
+def start_loop(seq, System, lk, params=None, frames=None, depth=False):
+    """The first ``frames`` frames of the loop on the card (the right image,
+    or with depth the ray-cast depth) and a System (params, default the
+    bench's, lk_params replaced by lk) stepped through frames 0-1."""
     import torch
 
-    lefts = [torch.as_tensor(f, device="cuda") for f in seq.left]
-    rights = [torch.as_tensor(f, device="cuda") for f in seq.right]
+    n = frames or len(seq.left)
+    lefts = [torch.as_tensor(f, device="cuda") for f in seq.left[:n]]
+    rights = [torch.as_tensor(f, device="cuda")
+              for f in (seq.depth if depth else seq.right)[:n]]
     torch.cuda.synchronize()
-    sys_ = make_system(System, seq.camera, bench_params(WIDTH), "cuda", lk)
+    sys_ = make_system(System, seq.camera, params or bench_params(WIDTH),
+                       "cuda", lk)
     for i in range(2):
         sys_.input_primary_sensor_data(float(seq.stamps[i]), lefts[i],
                                        rights[i])
@@ -799,17 +886,44 @@ def timed_steps(sys_, seq, lefts, rights, feed=None, spans=()):
     return elapsed, stages, syncs
 
 
-def phase_loop(label, seq, System, lk, expect, ate_rmse):
-    """The 300-frame bench loop on the card.  expect: {(kernel module,
-    launch counter name): launches per frame}; every count is set to 0 just
-    before the timed loop and read just after it."""
-    sys_, lefts, rights = start_loop(seq, System, lk)
+def phase_loop(label, seq, System, lk, expect, ate_rmse, params=None,
+               frames=N_FRAMES, depth=False, one_way=None):
+    """The first ``frames`` frames of the loop on the card (params default
+    the bench's; depth feeds the ray-cast depth as the right image).
+    expect: {(kernel module, launch counter name): launches per frame};
+    every count is set to 0 just before the timed loop and read just after
+    it.  one_way: the K1 pyramid calls a frame that must be one-way (none
+    bidirectional), when given.  Returns the launches and the System."""
+    import torch
+
+    import visfs_tpu_torch.ops.lk as lk_ops
+    import visfs_tpu_torch.slam.tracker as tracker_mod
+
+    sys_, lefts, rights = start_loop(seq, System, lk, params, frames, depth)
+    entry, ways = lk_ops.lk_pyramid, []
+    cull, culled = tracker_mod.cull_with_fundamental, []
+
+    def recorded(*a, **kw):
+        ways.append(kw["bidirectional"])
+        return entry(*a, **kw)
+
+    def counted_cull(p1, p2, mask, *a, **kw):
+        inl, f = cull(p1, p2, mask, *a, **kw)
+        culled.append((mask & ~inl).sum())  # on the device: no sync
+        return inl, f
+
     for mod, counter in expect:
         setattr(mod, counter, 0)
-    elapsed, stages, syncs = timed_steps(sys_, seq, lefts, rights)
+    lk_ops.lk_pyramid = recorded
+    tracker_mod.cull_with_fundamental = counted_cull
+    try:
+        elapsed, stages, syncs = timed_steps(sys_, seq, lefts, rights)
+    finally:
+        lk_ops.lk_pyramid = entry
+        tracker_mod.cull_with_fundamental = cull
     launches = {key: getattr(*key) for key in expect}
     outs = sys_.drain_outputs()
-    n = N_FRAMES - 2
+    n = frames - 2
     fps = n / elapsed
     est = np.stack([o.pose for o in outs])
     if not np.all(np.isfinite(est)) or est.shape != (n, 4, 4):
@@ -820,12 +934,19 @@ def phase_loop(label, seq, System, lk, expect, ate_rmse):
                        f"({c / n:g}/frame)"
                        for (mod, counter), c in launches.items())
     print(f"{label}: {fps:.2f} fps over {n} frames ({elapsed:.2f} s), ATE "
-          f"{ate:.4f} m, lost {lost}/{len(outs)}, {counts}, host syncs in "
-          f"loop {len(syncs)}", flush=True)
+          f"{ate:.4f} m, lost {lost}/{len(outs)}, fewest inliers "
+          f"{min(int(o.n_inliers) for o in outs)}, {counts}, K1 pyramid "
+          f"calls {len(ways)} ({sum(not w for w in ways)} one-way), host "
+          f"syncs in loop {len(syncs)}", flush=True)
     print(f"{label} stages (medians per frame): " + json.dumps(stages),
           flush=True)
     for msg in sorted(set(syncs))[:5]:
         print(f"{label}: sync: {msg[:200]}", flush=True)
+    if culled:
+        per_frame = torch.stack(culled).cpu().tolist()
+        print(f"{label}: the cull rejects per frame (of the tracked "
+              f"features): {' '.join(map(str, per_frame))}; total "
+              f"{sum(per_frame)} over {len(per_frame)} calls", flush=True)
     if not ate <= ATE_GATE:
         fail(f"{label}: ATE {ate:.4f} m > {ATE_GATE}")
     if lost:
@@ -836,7 +957,31 @@ def phase_loop(label, seq, System, lk, expect, ate_rmse):
         if launches[mod, counter] != per_frame * n:
             fail(f"{label}: {mod.__name__}.{counter} is "
                  f"{launches[mod, counter]}, expected {per_frame * n}")
-    return launches
+    if one_way is not None and (len(ways) != one_way * n or any(ways)):
+        fail(f"{label}: {len(ways)} K1 pyramid calls, "
+             f"{sum(ways)} bidirectional; expected {one_way * n} one-way")
+    return launches, sys_
+
+
+def phase_profile(seq, System, frames=10):
+    """The main path with System(profile_stages=True): frames 0-1 fused,
+    then ``frames`` frames each run as four synced stages; prints the
+    median of each time_* field (ms).  Printed, not gated: the syncs make
+    these the stages' own times, not the fused step's."""
+    sys_, lefts, rights = start_loop(seq, System, None, frames=frames + 2)
+    sys_.profile_stages = True
+    for i in range(2, frames + 2):
+        sys_.input_primary_sensor_data(float(seq.stamps[i]), lefts[i],
+                                       rights[i])
+    outs = sys_.drain_outputs()
+    split = {f: float(np.median([float(getattr(o, f)) for o in outs]) * 1e3)
+             for f in ("time_tracking", "time_estimation",
+                       "local_bundle_time", "time_total")}
+    print(f"main profile_stages (medians over {len(outs)} frames, ms, "
+          f"synced stages): " + json.dumps(split), flush=True)
+    if len(outs) != frames or any(bool(o.lost) for o in outs):
+        fail(f"main profile_stages: {len(outs)} frames, lost "
+             f"{[bool(o.lost) for o in outs]}")
 
 
 def s3_params(width):
@@ -939,9 +1084,13 @@ def map_gate(submaps, room, label):
         fail(f"{label}: map probes failed: {bad}")
 
 
-def phase_s3(System, cached_textured_sequence, cache_dir, expect, ate_rmse):
+def phase_s3(System, cached_textured_sequence, cache_dir, expect, ate_rmse,
+             label="s3", params=None, probes=True, frames=S3_FRAMES):
     """Bench phase 4 on the card: SensorStrategy 3 over the 120-frame
-    640x480 loop with wheel rows and scans.  expect as for phase_loop."""
+    640x480 loop with wheel rows and scans (params default bench phase 4's;
+    phase mapping passes configs/sim_mapping.yaml's block) or its first
+    ``frames``.  expect as for phase_loop.  probes: the insertion's device
+    time and the kernels a frame at strategies 0 and 3."""
     import torch
 
     import visfs_tpu_torch.slam.estimator as est_mod
@@ -950,17 +1099,19 @@ def phase_s3(System, cached_textured_sequence, cache_dir, expect, ate_rmse):
     t0 = time.perf_counter()
     seq = cached_textured_sequence(cache_dir=cache_dir, device="cuda",
                                    **S3_RENDER)
-    print(f"s3 sim: {S3_FRAMES} frames {WIDTH}x{HEIGHT} with "
+    print(f"{label} sim: {S3_FRAMES} frames {WIDTH}x{HEIGHT} with "
           f"{seq.laser_scans.shape[1]}-beam scans in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    lefts = [torch.as_tensor(f, device="cuda") for f in seq.left]
-    rights = [torch.as_tensor(f, device="cuda") for f in seq.right]
-    sys_ = make_system(System, seq.camera, s3_params(WIDTH), "cuda",
-                       scan_capacity=S3_SCAN_CAPACITY)
+    lefts = [torch.as_tensor(f, device="cuda") for f in seq.left[:frames]]
+    rights = [torch.as_tensor(f, device="cuda") for f in seq.right[:frames]]
+    sys_ = make_system(System, seq.camera, params or s3_params(WIDTH),
+                       "cuda", scan_capacity=S3_SCAN_CAPACITY,
+                       submap_extent_cells=256)
     sub0 = sys_.state.laser.submaps
-    print(f"s3 sizes: submap slots {list(sub0.cells.shape)}, scan capacity "
-          f"{S3_SCAN_CAPACITY}, raycast samples "
-          f"{sys_.settings.raycast_samples}", flush=True)
+    print(f"{label} sizes: submap slots {list(sub0.cells.shape)}, scan "
+          f"capacity {S3_SCAN_CAPACITY}, raycast samples "
+          f"{sys_.settings.raycast_samples}, CLAHE {sys_.cfg.system_clahe}",
+          flush=True)
     feed = wheel_and_scan_feeder(sys_, seq, lefts, rights)
     for i in range(2):
         feed(i)
@@ -989,40 +1140,43 @@ def phase_s3(System, cached_textured_sequence, cache_dir, expect, ate_rmse):
         est_mod.insert_range_data_active = insert
     launches = {key: getattr(*key) for key in expect}
     outs = sys_.drain_outputs()
-    n = S3_FRAMES - 2
+    n = frames - 2
     fps = n / elapsed
     est = np.stack([o.pose for o in outs])
     if not np.all(np.isfinite(est)) or est.shape != (n, 4, 4):
-        fail(f"s3: poses not finite [{n}, 4, 4]: {est.shape}")
+        fail(f"{label}: poses not finite [{n}, 4, 4]: {est.shape}")
     ate = ate_rmse(est, seq.poses[2:2 + len(est)])
     lost = int(sum(bool(o.lost) for o in outs))
     counts = ", ".join(f"{mod.__name__.rsplit('.', 1)[-1]}.{counter} {c} "
                        f"({c / n:g}/frame)"
                        for (mod, counter), c in launches.items())
-    print(f"s3: {fps:.2f} fps over {n} frames ({elapsed:.2f} s), ATE "
+    print(f"{label}: {fps:.2f} fps over {n} frames ({elapsed:.2f} s), ATE "
           f"{ate:.4f} m, lost {lost}/{len(outs)}, fewest inliers "
           f"{min(int(o.n_inliers) for o in outs)}, {counts}, host syncs in "
           f"loop {len(syncs)}", flush=True)
-    print("s3 stages (medians per frame): " + json.dumps(stages), flush=True)
+    print(f"{label} stages (medians per frame): " + json.dumps(stages),
+          flush=True)
     for msg in sorted(set(syncs))[:5]:
-        print(f"s3: sync: {msg[:200]}", flush=True)
-    ins_ms, ins_kernels = device_ms_per_call(
-        lambda: insert(*last["a"], **last["kw"]))
-    print(f"s3 submap insertion (the last frame's inputs): {ins_ms:.4f} ms "
-          f"of device time per call in {ins_kernels:g} kernels "
-          f"(torch.profiler)", flush=True)
-    map_gate(sys_.state.laser.submaps, seq.room, "s3")
+        print(f"{label}: sync: {msg[:200]}", flush=True)
+    if probes:
+        ins_ms, ins_kernels = device_ms_per_call(
+            lambda: insert(*last["a"], **last["kw"]))
+        print(f"{label} submap insertion (the last frame's inputs): "
+              f"{ins_ms:.4f} ms of device time per call in {ins_kernels:g} "
+              f"kernels (torch.profiler)", flush=True)
+    map_gate(sys_.state.laser.submaps, seq.room, label)
     if not ate <= ATE_GATE:
-        fail(f"s3: ATE {ate:.4f} m > {ATE_GATE}")
+        fail(f"{label}: ATE {ate:.4f} m > {ATE_GATE}")
     if lost:
-        fail(f"s3: {lost} lost frames")
+        fail(f"{label}: {lost} lost frames")
     if syncs:
-        fail(f"s3: {len(syncs)} host syncs in the loop")
+        fail(f"{label}: {len(syncs)} host syncs in the loop")
     for (mod, counter), per_frame in expect.items():
         if launches[mod, counter] != per_frame * n:
-            fail(f"s3: {mod.__name__}.{counter} is "
+            fail(f"{label}: {mod.__name__}.{counter} is "
                  f"{launches[mod, counter]}, expected {per_frame * n}")
-    kernels_per_frame(System, seq, lefts, rights)
+    if probes:
+        kernels_per_frame(System, seq, lefts, rights)
     return launches
 
 
@@ -1100,26 +1254,42 @@ def compare_submaps(label, a, b):
 
 
 def phase_small(System, cached_textured_sequence, cache_dir):
+    from visfs_tpu_torch.operating_points import SIM_LOCALIZATION
+
     seq = cached_textured_sequence(cache_dir=cache_dir, n_frames=8,
                                    width=160, height=120, motion="square",
                                    seed=0, speed=2.0, with_laser=True,
-                                   n_beams=180, device="cuda")
+                                   n_beams=180, with_depth=True,
+                                   device="cuda")
     params = bench_params(160)
     params["Tracker/MaxFeatures"] = 40
-    for label, lk in (("k1", None), ("xcorr", XCORR),
-                      ("direct", dict(backend="jnp"))):
+    # configs/sim_localization.yaml's block, its MinDistance (the default,
+    # 40 px at 640x480) scaled to the width as bench_params scales it:
+    # at 40 px a 160x120 frame keeps too few corners and every frame is lost
+    loc = dict(SIM_LOCALIZATION, **{"Tracker/MinDistance": 12})
+    for label, lk, p, right in (
+            ("k1", None, params, seq.right),
+            ("xcorr", XCORR, params, seq.right),
+            ("direct", dict(backend="jnp"), params, seq.right),
+            ("strategy 1 (RGBD)", None,
+             dict(params, **{"System/SensorStrategy": 1}), seq.depth),
+            ("CLAHE", None, dict(params, **{"System/CLAHE": True}),
+             seq.right),
+            ("sim_localization", None, loc, seq.right),
+            ("sim_localization + cull", None, dict(loc, **CULL),
+             seq.right)):
         runs = {}
         for dev in ("cuda", "cpu"):
-            s = make_system(System, seq.camera, params, dev, lk)
-            runs[dev] = s.run_sequence(seq.stamps, seq.left, seq.right)
+            s = make_system(System, seq.camera, p, dev, lk)
+            runs[dev] = s.run_sequence(seq.stamps, seq.left, right)
         print(f"small {label}: cuda vs cpu over 8 frames at 160x120: "
               + compare_runs(label, runs["cuda"], runs["cpu"]), flush=True)
-    # strategies 2 and 3 with wheel rows, scans at 3, free running; a
-    # submap rotates every 3 scans, so 8 frames start a second one and
-    # finish the first
-    for strategy in (2, 3):
-        p = fusion_params(params, strategy)
-        label = f"strategy {strategy}"
+    # strategies 2 and 3 with wheel rows, scans at 3, free running (3 also
+    # with CLAHE); a submap rotates every 3 scans, so 8 frames start a
+    # second one and finish the first
+    for strategy, extra in ((2, {}), (3, {}), (3, {"System/CLAHE": True})):
+        p = dict(fusion_params(params, strategy), **extra)
+        label = f"strategy {strategy}" + (" CLAHE" if extra else "")
         scans = seq.laser_scans if strategy == 3 else None
         free = {dev: make_system(System, seq.camera, p, dev,
                                  scan_capacity=S3_SCAN_CAPACITY)
@@ -1145,6 +1315,82 @@ def phase_small(System, cached_textured_sequence, cache_dir):
                    wheel=False)
 
 
+def phase_clahe(seq):
+    """clahe on "cuda" against "cpu" on one 640x480 frame: max |d| within
+    CLAHE_BOUND levels (the histograms are exact on both; the CDF is a
+    cumsum whose order the devices may choose differently)."""
+    import torch
+
+    from visfs_tpu_torch.ops.image import clahe
+
+    img = torch.as_tensor(seq.left[1])
+    a = clahe(img.cuda()).cpu()
+    b = clahe(img)
+    d = float((a - b).abs().max())
+    print(f"small clahe: cuda vs cpu on one {WIDTH}x{HEIGHT} frame: max|d| "
+          f"{d:.3g} levels, {int((a != b).sum())} pixels differ", flush=True)
+    if not d <= CLAHE_BOUND:
+        fail(f"small clahe: cuda vs cpu max|d| {d:.3g} > {CLAHE_BOUND}")
+
+
+def fundamental_scene(rng, n=120, outliers=20):
+    """Two views of a 3D scene with known epipolar geometry and gross
+    outliers: (p1, p2 [n, 2] float32 pixels, outlier mask [n]), as
+    tests/test_fundamental.py's make_scene draws them from rng."""
+    pts = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n),
+                    rng.uniform(4, 10, n)], -1)
+    fx = fy = 400.0
+    cx, cy = 320.0, 240.0
+    t = np.array([0.3, 0.05, 0.1])
+    ang = 0.05
+    R = np.array([[np.cos(ang), 0, np.sin(ang)], [0, 1, 0],
+                  [-np.sin(ang), 0, np.cos(ang)]])
+
+    def proj(P):
+        return np.stack([P[:, 0] / P[:, 2] * fx + cx,
+                         P[:, 1] / P[:, 2] * fy + cy], -1)
+
+    p1 = proj(pts)
+    p2 = proj((R @ pts.T).T + t)
+    gt_out = np.zeros(n, bool)
+    bad = rng.choice(n, size=outliers, replace=False)
+    p2[bad] += rng.uniform(15, 60, size=(outliers, 2))
+    gt_out[bad] = True
+    return p1.astype(np.float32), p2.astype(np.float32), gt_out
+
+
+def phase_cull():
+    """cull_with_fundamental on "cuda" against "cpu" on
+    tests/test_fundamental.py::test_separates_outliers' scene and key (seed
+    42, 20 gross outliers of 120, key 0, threshold 1.5, 64 hypotheses):
+    identical inlier masks, every gross outlier rejected."""
+    import torch
+
+    from visfs_tpu_torch.core import prng
+    from visfs_tpu_torch.ops.fundamental import cull_with_fundamental
+
+    p1, p2, gt_out = fundamental_scene(np.random.default_rng(42))
+    got = {}
+    for dev in ("cuda", "cpu"):
+        inl, f = cull_with_fundamental(
+            torch.as_tensor(p1, device=dev), torch.as_tensor(p2, device=dev),
+            torch.ones(len(p1), dtype=torch.bool, device=dev),
+            prng.PRNGKey(0, device=dev), threshold=1.5, hypotheses=64)
+        f = f.cpu().double()
+        got[dev] = inl.cpu().numpy(), f / f.norm()
+    (mask, fa), (mask_cpu, fb) = got["cuda"], got["cpu"]
+    df = float(torch.minimum((fa - fb).abs().max(), (fa + fb).abs().max()))
+    print(f"cull: cuda vs cpu on the outlier scene: masks "
+          f"{'identical' if np.array_equal(mask, mask_cpu) else 'differ'}, "
+          f"{int((~mask).sum())} of {len(mask)} rejected ({int(gt_out.sum())}"
+          f" gross outliers, {int((~mask & gt_out).sum())} of them), F up to "
+          f"scale and sign within {df:.3g}", flush=True)
+    if not np.array_equal(mask, mask_cpu):
+        fail("cull: cuda and cpu inlier masks differ")
+    if mask[gt_out].any():
+        fail(f"cull: {int(mask[gt_out].sum())} gross outliers kept")
+
+
 def fusion_params(params, strategy):
     return dict(params, **{"System/SensorStrategy": strategy,
                            "LocalMap/NumRangeDataLimit": 3})
@@ -1162,7 +1408,11 @@ def stepped_fusion(System, seq, p, label, wheel):
     submap insertion replayed on "cuda" with the "cpu" step's inputs,
     and the submaps' slots, counts and finished flags.  The float32 gaps are
     printed with their parts: the same problem solved in float32 on both
-    devices, and on "cpu" under one ulp of the problem."""
+    devices, and on "cpu" under one ulp of the problem.  Where the lost
+    flags differ, the "cpu" step is taken again from its state under
+    WITNESS_SEEDS random one-ulp nudges: "cuda"'s (inliers, lost) must be
+    one of theirs, and the step is held, in all of the above, against the
+    first nudged "cpu" step with that outcome."""
     import torch
 
     import visfs_tpu_torch.slam.estimator as est_mod
@@ -1188,35 +1438,62 @@ def stepped_fusion(System, seq, p, label, wheel):
         seen[side[0], "insert"] = (a, kw, out)
         return out
 
+    def outcome(out):
+        return int(out.n_inliers), bool(out.lost)
+
+    def witness(i, before, want):
+        """The state after the first nudged "cpu" step of frame i (from
+        before) whose outcome is want; fails if none of WITNESS_SEEDS is."""
+        after, got = sys_[cpu].state, []
+        side[0] = "nudged"
+        try:
+            for seed in range(WITNESS_SEEDS):
+                sys_[cpu].state = nudged(before, seed)
+                feeds[cpu](i)
+                got.append(outcome(sys_[cpu].drain_outputs()[-1]))
+                if got[-1] == want:
+                    return sys_[cpu].state, got
+        finally:
+            sys_[cpu].state = after
+        fail(f"small {label}: frame {i} {gpu} (inliers, lost) {want}, none "
+             f"of {WITNESS_SEEDS} one-ulp nudged {cpu} steps gives it: "
+             f"{sorted(set(got))}")
+
     outs = {dev: [] for dev in devs}
     worst = {"problem": 0.0, "f64": 0.0, "f32": 0.0, "ulp": 0.0}
-    cells = []
+    cells, edges = [], []
     if not wheel:
         ba_mod.local_optimize = keep_ba
         est_mod.insert_range_data_active = keep_insert
     try:
         for i in range(len(seq.stamps)):
-            sys_[gpu].state = tensors_to(sys_[cpu].state, gpu)
+            before = sys_[cpu].state
+            sys_[gpu].state = tensors_to(before, gpu)
             for dev in devs:
                 side[0] = dev
                 feeds[dev](i)
                 outs[dev] += sys_[dev].drain_outputs()
             if wheel:
                 continue
-            a, b = outs[gpu][-1], outs[cpu][-1]
-            if bool(a.lost) != bool(b.lost) \
-                    or abs(int(a.n_inliers) - int(b.n_inliers)) > 1:
-                fail(f"small {label}: frame {i} inliers {int(a.n_inliers)}/"
-                     f"{int(b.n_inliers)}, lost {bool(a.lost)}/"
-                     f"{bool(b.lost)}")
-            prob_gpu, _, _ = seen[gpu, "ba"]
-            prob, settings, res = seen[cpu, "ba"]
+            a, b = outcome(outs[gpu][-1]), outcome(outs[cpu][-1])
+            if abs(a[0] - b[0]) > 1:
+                fail(f"small {label}: frame {i} inliers {a[0]}/{b[0]}")
+            ref, held = cpu, sys_[cpu].state
+            if a[1] != b[1]:
+                ref = "nudged"
+                held, got = witness(i, before, a)
+                edges.append(f"frame {i} {gpu} {a} {cpu} {b}, {cpu} nudged "
+                             f"{' '.join(map(str, got))}")
+            # the cost grid is the state's submap cells looked up in its
+            # cost table, before the step: held against the unnudged step
+            prob_gpu = seen[gpu, "ba"][0]
+            if not torch.equal(prob_gpu.laser.cost_grid.cpu(),
+                               seen[cpu, "ba"][0].laser.cost_grid.cpu()):
+                fail(f"small {label}: frame {i} cost grids differ")
+            prob, settings, res = seen[ref, "ba"]
             valid = prob.pose_valid
             worst["problem"] = max(worst["problem"], pose_gap(
                 f"{label}: frame {i} BA problem", prob_gpu, prob, valid))
-            if not torch.equal(prob_gpu.laser.cost_grid.cpu(),
-                               prob.laser.cost_grid.cpu()):
-                fail(f"small {label}: frame {i} cost grids differ")
             r64 = [optimize(tensors_to(prob, dev, torch.float64), settings)
                    for dev in devs]
             worst["f64"] = max(worst["f64"], pose_gap(
@@ -1227,18 +1504,17 @@ def stepped_fusion(System, seq, p, label, wheel):
             r_ulp = optimize(nudged(prob), settings)
             worst["ulp"] = max(worst["ulp"], pose_gap(
                 "", r_ulp, res, valid, gate=False))
-            args, kw, sub = seen[cpu, "insert"]
+            args, kw, sub = seen[ref, "insert"]
             compare_submaps(f"{label}: frame {i} insertion replayed",
                             insert(*tensors_to(args, gpu), **kw), sub)
             for f in ("slot_valid", "num_range_data", "finished"):
                 x = getattr(sys_[gpu].state.laser.submaps, f).cpu()
-                y = getattr(sys_[cpu].state.laser.submaps, f).cpu()
+                y = getattr(held.laser.submaps, f).cpu()
                 if not torch.equal(x, y):
                     fail(f"small {label}: frame {i} {f} {x.tolist()} / "
                          f"{y.tolist()}")
             ca = sys_[gpu].state.laser.submaps.cells.cpu()
-            cb = sys_[cpu].state.laser.submaps.cells.cpu()
-            cells.append(int((ca != cb).sum()))
+            cells.append(int((ca != held.laser.submaps.cells.cpu()).sum()))
     finally:
         ba_mod.local_optimize = optimize
         est_mod.insert_range_data_active = insert
@@ -1250,7 +1526,10 @@ def stepped_fusion(System, seq, p, label, wheel):
     else:
         gaps = [float(np.abs(x.pose[:3, 3] - y.pose[:3, 3]).max())
                 for x, y in zip(outs[gpu], outs[cpu])]
-        line = (f"lost and inliers held; BA problems within "
+        line = (f"inliers within 1, lost flags identical or (frames where "
+                f"they differ, (inliers, lost), each held against the first "
+                f"one-ulp nudged {cpu} step with {gpu}'s outcome: "
+                f"{'; '.join(edges) or 'none'}); BA problems within "
                 f"{worst['problem']:.3g}, float64 BA within "
                 f"{worst['f64']:.3g}, insertions replayed within the "
                 f"submap gates, slots, counts and finished identical "
@@ -1283,15 +1562,23 @@ def pose_gap(label, a, b, valid, gate=True):
     return max(dt, dr)
 
 
-def nudged(problem):
-    """problem with every float32 tensor one ulp up."""
+def nudged(x, seed=None):
+    """x (a BAProblem, a VOState) with every float32 tensor one ulp away:
+    up, or up or down at random from seed."""
     import torch
 
-    def one(x):
-        if isinstance(x, torch.Tensor) and x.dtype == torch.float32:
-            return torch.nextafter(x, torch.full_like(x, float("inf")))
-        return x
-    return map_tensors(problem, one)
+    g = None if seed is None else torch.Generator().manual_seed(seed)
+
+    def one(t):
+        if not (isinstance(t, torch.Tensor) and t.dtype == torch.float32):
+            return t
+        up = torch.nextafter(t, torch.full_like(t, float("inf")))
+        if g is None:
+            return up
+        down = torch.nextafter(t, torch.full_like(t, float("-inf")))
+        pick = torch.randint(0, 2, t.shape, generator=g).bool()
+        return torch.where(pick.to(t.device), up, down)
+    return map_tensors(x, one)
 
 
 def map_tensors(x, fn):
@@ -1374,28 +1661,57 @@ def main():
     t0 = time.perf_counter()
     seq = cached_textured_sequence(
         cache_dir=cache_dir, n_frames=N_FRAMES, width=WIDTH, height=HEIGHT,
-        motion="square", seed=0, speed=2.0, device="cuda")
-    print(f"sim: {N_FRAMES} frames {WIDTH}x{HEIGHT} in "
+        motion="square", seed=0, speed=2.0, with_depth=True, device="cuda")
+    print(f"sim: {N_FRAMES} frames {WIDTH}x{HEIGHT} with depth in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    k1_tot = phase_k1(seq, k1_mod)
-    k2_tot = phase_k2(seq, k2_mod)
+    from visfs_tpu_torch.operating_points import (SIM_LOCALIZATION,
+                                                  SIM_MAPPING)
     k1_pyr, k1_level, k2_pyr, k2_level = (
         (k1_mod, "PYR_LAUNCHES"), (k1_mod, "LAUNCHES"),
         (k2_mod, "PYR_LAUNCHES"), (k2_mod, "LAUNCHES"))
-    main_launches = phase_loop(
-        "main", seq, System, None,
-        {k1_pyr: 2, k1_level: 0, k2_pyr: 0, k2_level: 0}, ate_rmse)
-    xcorr_launches = phase_loop(
-        "xcorr", seq, System, XCORR,
-        {k1_pyr: 0, k1_level: 0, k2_pyr: 2, k2_level: 0}, ate_rmse)
-    t0 = time.perf_counter()
-    phase_s3(System, cached_textured_sequence, cache_dir,
-             {k1_pyr: 2, k1_level: 0, k2_pyr: 0, k2_level: 0}, ate_rmse)
-    t1 = time.perf_counter()
-    phase_small(System, cached_textured_sequence, cache_dir)
-    print(f"phase times: s3 {t1 - t0:.1f} s, small "
-          f"{time.perf_counter() - t1:.1f} s", flush=True)
+    on_k1 = {k1_pyr: 2, k1_level: 0, k2_pyr: 0, k2_level: 0}
+    times = {}
+
+    def timed_phase(name, fn, *a, **kw):
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        times[name] = round(time.perf_counter() - t, 1)
+        return out
+
+    k1_tot = timed_phase("k1", phase_k1, seq, k1_mod)
+    k2_tot = timed_phase("k2", phase_k2, seq, k2_mod)
+    main_launches, _ = timed_phase("main", phase_loop, "main", seq, System,
+                                   None, on_k1, ate_rmse)
+    timed_phase("profile", phase_profile, seq, System)
+    xcorr_launches, _ = timed_phase(
+        "xcorr", phase_loop, "xcorr", seq, System, XCORR,
+        {k1_pyr: 0, k1_level: 0, k2_pyr: 2, k2_level: 0}, ate_rmse,
+        frames=XCORR_FRAMES)
+    timed_phase("s3", phase_s3, System, cached_textured_sequence, cache_dir,
+                on_k1, ate_rmse)
+    timed_phase("mapping", phase_s3, System, cached_textured_sequence,
+                cache_dir, on_k1, ate_rmse, label="mapping",
+                params=SIM_MAPPING, probes=False, frames=MODE_FRAMES)
+    timed_phase("loc_cull", phase_loop, "loc_cull", seq, System, None,
+                on_k1, ate_rmse, params=dict(SIM_LOCALIZATION, **CULL),
+                frames=MODE_FRAMES, one_way=2)
+    timed_phase("rgbd", phase_loop, "rgbd", seq, System, None,
+                {k1_pyr: 1, k1_level: 0, k2_pyr: 0, k2_level: 0}, ate_rmse,
+                params=dict(bench_params(WIDTH),
+                            **{"System/SensorStrategy": 1}),
+                frames=MODE_FRAMES, depth=True)
+    timed_phase("small", phase_small, System, cached_textured_sequence,
+                cache_dir)
+    timed_phase("clahe", phase_clahe, seq)
+    timed_phase("cull", phase_cull)
+    print("phase times (s): " + json.dumps(times), flush=True)
+    tries = [n for _, n in TRACES]
+    print(f"profiler traces: {len(TRACES)} kernel rows, traces per row "
+          + json.dumps({n: tries.count(n) for n in sorted(set(tries))})
+          + "; rows that took more than one: "
+          + (", ".join(f"{label} ({n})" for label, n in TRACES if n > 1)
+             or "none"), flush=True)
 
     print(json.dumps({"kernels": [
         kernel_entry("lk_pyramid", "visfs_tpu_torch/csrc/lk_level.cu",

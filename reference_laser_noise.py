@@ -14,7 +14,10 @@ random, and
   - free: runs frames 1.. from the state before frame 1, nudged again
     before every frame.
 Prints one JSON line a strategy: the unperturbed run's ATE, and per frame
-the largest translation gap (m) to the unperturbed run over the seeds.
+the largest translation gap (m) to the unperturbed run over the seeds, the
+unperturbed run's (inliers, lost) and the distinct (inliers, lost) of the
+stepped frames over the seeds.  A frame whose stepped outcomes fall on both
+sides of Estimator/MinInliers is lost or kept by the rounding alone.
 """
 
 import argparse
@@ -96,13 +99,16 @@ def main():
             base += s.drain_outputs()
         stepped = np.zeros(n - 1)
         free = np.zeros(n - 1)
+        outcomes = [set() for _ in range(n - 1)]
         for seed in range(args.seeds):
             rng = np.random.default_rng(seed)
             for i in range(1, n):
                 s.state = nudge(before[i], rng)
                 feed(i)
-                gap = np.abs(t(s.drain_outputs()[-1]) - t(base[i])).max()
+                out = s.drain_outputs()[-1]
+                gap = np.abs(t(out) - t(base[i])).max()
                 stepped[i - 1] = max(stepped[i - 1], gap)
+                outcomes[i - 1].add((int(out.n_inliers), bool(out.lost)))
             s.state = copy(before[1])
             for i in range(1, n):
                 s.state = nudge(s.state, rng)
@@ -116,7 +122,11 @@ def main():
             "ate_m": ate_rmse(np.stack([np.asarray(o.pose) for o in base]),
                               seq.poses),
             "stepped_gap_m": [float(g) for g in stepped],
-            "free_gap_m": [float(g) for g in free]}), flush=True)
+            "free_gap_m": [float(g) for g in free],
+            "min_inliers": s.cfg.estimator_min_inliers,
+            "outcomes": [[int(o.n_inliers), bool(o.lost)] for o in base],
+            "stepped_outcomes": [sorted(o) for o in outcomes]}),
+            flush=True)
 
 
 if __name__ == "__main__":

@@ -92,9 +92,7 @@ def bench_pair():
     return build_lk_pyramid(img0, p), build_lk_pyramid(img1, p), det.points
 
 
-@pytest.mark.parametrize("n", [120, 240])
-def test_k1_pyramid_kernel_matches_plain_version(bench_pair, n):
-    _require_gpu()
+def _k1_pyramid_case(bench_pair, n, bidirectional):
     pyr0, pyr1, points = bench_pair
     p = LKParams()
     pts = points[:n].contiguous()
@@ -104,8 +102,8 @@ def test_k1_pyramid_kernel_matches_plain_version(bench_pair, n):
     valid = torch.from_numpy(rng.uniform(size=n) > 0.1).cuda()
     kw = dict(win=p.win_size, max_level=p.max_level,
               iterations=p.iterations, eps=p.eps,
-              min_eig_threshold=p.min_eig_threshold, bidirectional=True,
-              fb_threshold=1.5)
+              min_eig_threshold=p.min_eig_threshold,
+              bidirectional=bidirectional, fb_threshold=1.5)
     before = (k1.PYR_LAUNCHES, k1.LAUNCHES)
     pk, sk, ek = k1.lk_pyramid(pyr0, pyr1, pts, init, valid, **kw)
     pp, sp, ep = k1.lk_pyramid_reference(pyr0, pyr1, pts, init, valid, **kw)
@@ -119,8 +117,19 @@ def test_k1_pyramid_kernel_matches_plain_version(bench_pair, n):
 
 
 @pytest.mark.parametrize("n", [120, 240])
-def test_k2_pyramid_kernel_matches_plain_version(bench_pair, n):
+def test_k1_pyramid_kernel_matches_plain_version(bench_pair, n):
     _require_gpu()
+    _k1_pyramid_case(bench_pair, n, True)
+
+
+@pytest.mark.parametrize("n", [120, 240])
+def test_k1_pyramid_one_way_matches_plain_version(bench_pair, n):
+    # FlowBack off (configs/sim_localization.yaml): no reverse track
+    _require_gpu()
+    _k1_pyramid_case(bench_pair, n, False)
+
+
+def _k2_pyramid_case(bench_pair, n, bidirectional):
     pyr0, pyr1, points = bench_pair
     p = LKParams(iter_mode="xcorr")
     pts = points[:n].contiguous()
@@ -130,8 +139,8 @@ def test_k2_pyramid_kernel_matches_plain_version(bench_pair, n):
     valid = torch.from_numpy(rng.uniform(size=n) > 0.1).cuda()
     kw = dict(win=p.win_size, max_level=p.max_level,
               iterations=p.iterations, eps=p.eps,
-              min_eig_threshold=p.min_eig_threshold, bidirectional=True,
-              fb_threshold=1.5)
+              min_eig_threshold=p.min_eig_threshold,
+              bidirectional=bidirectional, fb_threshold=1.5)
     before = (k2.PYR_LAUNCHES, k2.LAUNCHES)
     pk, sk, ek = k2.lk_xcorr_pyramid(pyr0, pyr1, pts, init, valid, **kw)
     pp, sp, ep = k2.lk_xcorr_pyramid_reference(pyr0, pyr1, pts, init, valid,
@@ -143,6 +152,18 @@ def test_k2_pyramid_kernel_matches_plain_version(bench_pair, n):
     assert int(sp.sum()) >= n // 2
     np.testing.assert_allclose(ek.cpu().numpy(), ep.cpu().numpy(), rtol=1e-3,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [120, 240])
+def test_k2_pyramid_kernel_matches_plain_version(bench_pair, n):
+    _require_gpu()
+    _k2_pyramid_case(bench_pair, n, True)
+
+
+@pytest.mark.parametrize("n", [120, 240])
+def test_k2_pyramid_one_way_matches_plain_version(bench_pair, n):
+    _require_gpu()
+    _k2_pyramid_case(bench_pair, n, False)
 
 
 def test_k2_cuda_kernel_matches_plain_version():

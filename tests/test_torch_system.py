@@ -233,17 +233,13 @@ def test_system_requires_a_device():
         System(PARAMS)
 
 
-@pytest.mark.parametrize("override", [
-    {"System/SensorStrategy": 1}, {"System/CLAHE": True},
-    {"Tracker/CullByFundationMatrix": True}])
-def test_system_rejects_unported_options(override):
+@pytest.mark.parametrize("strategy", [-1, 6])
+def test_system_rejects_unknown_strategy(strategy):
     with pytest.raises(NotImplementedError):
-        System({**PARAMS, **override}, device="cpu")
+        System({**PARAMS, "System/SensorStrategy": strategy}, device="cpu")
 
 
-def test_system_rejects_profile_stages_and_bf16():
-    with pytest.raises(NotImplementedError):
-        System(PARAMS, device="cpu", profile_stages=True)
+def test_system_rejects_bf16():
     with pytest.raises(ValueError):
         System({**PARAMS, "Tracker/FlowComputeDtype": "bfloat16"},
                device="cpu")

@@ -1,11 +1,16 @@
-"""Synthetic textured stereo sequences with exact ground truth (torch port of
-the textured generator in visfs_tpu.io.sim).
+"""Synthetic stereo sequences with exact ground truth (torch port of
+visfs_tpu.io.sim).
 
-A closed rectangular room (walls, floor, ceiling) plus pillars, all with
-multi-octave value-noise textures, is ray-cast through the stereo rig on the
-given device; exposure drift, pixel noise, wheel odometry and the 2D laser
-scans (``with_laser``, numpy) come from the same numpy random stream, drawn
-in the reference's call order, so a seed gives the reference's sequence.
+Two generators.  ``generate_sequence`` renders a rigid 3D "starfield" of
+Gaussian splats through the stereo rig on the host (numpy), with a splatted
+depth map (``with_depth``, the RGBD input) and 2D scans of a rectangular
+room (``with_laser``).  ``generate_textured_sequence`` ray-casts a closed
+rectangular room (walls, floor, ceiling) plus pillars, all with multi-octave
+value-noise textures, through the stereo rig on the given device, with the
+left view's z-depth where a ray hits (``with_depth``).  Exposure drift,
+pixel noise, wheel odometry and the scans come from the same numpy random
+stream, drawn in the reference's call order, so a seed gives the
+reference's sequence.
 """
 
 from __future__ import annotations
@@ -32,6 +37,8 @@ class SimSequence(NamedTuple):
     camera: StereoCamera
     laser_scans: np.ndarray | None = None  # [T, n_beams, 3] robot frame
     room: tuple | None = None  # (x0, x1, y0, y1) walls, with laser scans
+    points: np.ndarray | None = None  # [M, 3] starfield world points
+    depth: np.ndarray | None = None  # [T, H, W] left z-depth (m), 0 = none
 
 
 def default_camera(width=320, height=240, device="cuda"):
@@ -39,6 +46,138 @@ def default_camera(width=320, height=240, device="cuda"):
         fx=0.8 * width, fy=0.8 * width, cx=width / 2, cy=height / 2,
         baseline=0.12, width=width, height=height, device=device)
 
+
+# --- the starfield (numpy on the host, as the reference renders it) -------
+
+_SPLAT_RAD = 3
+_Z_NEAR = 0.25  # projections nearer than this along the optical axis drop
+
+
+def _drawn(u, v, z, width, height, rad=_SPLAT_RAD):
+    """Whether a splat of radius rad at (u, v), depth z, is drawn."""
+    return z > _Z_NEAR and rad <= u < width - rad and rad <= v < height - rad
+
+
+def _render(points_cam, intensities, width, height, splat_sigma=0.9):
+    """Gaussian splats at the projections (u, v, z) [M, 3], in [0, 255]."""
+    img = np.zeros((height, width), dtype=np.float32)
+    rad = _SPLAT_RAD
+    for (u, v, z), inten in zip(points_cam, intensities):
+        if not _drawn(u, v, z, width, height):
+            continue
+        iu, iv = int(u), int(v)
+        ys = np.arange(iv - rad, iv + rad + 1)
+        xs = np.arange(iu - rad, iu + rad + 1)
+        gy = np.exp(-((ys - v) ** 2) / (2 * splat_sigma ** 2))
+        gx = np.exp(-((xs - u) ** 2) / (2 * splat_sigma ** 2))
+        img[np.ix_(ys, xs)] += inten * np.outer(gy, gx)
+    return np.clip(img, 0.0, 255.0)
+
+
+def _render_depth(points_cam, width, height, rad=_SPLAT_RAD):
+    """z written on the (2 rad + 1)^2 square around each projection, the
+    nearest winning; 0 where no splat lands."""
+    depth = np.zeros((height, width), dtype=np.float32)
+    for u, v, z in points_cam:
+        if not _drawn(u, v, z, width, height, rad):
+            continue
+        iu, iv = int(u), int(v)
+        patch = depth[iv - rad:iv + rad + 1, iu - rad:iu + rad + 1]
+        patch[(patch == 0) | (patch > z)] = z
+    return depth
+
+
+def _poses_from_xyyaw(xs, ys, yaws):
+    """[T, 4, 4] float32 planar poses from float32-rounded (x, y, yaw)."""
+    zero = np.zeros_like(np.asarray(xs, np.float64))
+    six = torch.tensor(np.stack([xs, ys, zero, zero, zero, yaws], -1),
+                       dtype=torch.float32)
+    return xyzrpy_to_mat(*six.unbind(-1)).numpy().astype(np.float32)
+
+
+def generate_sequence(
+    n_frames: int = 30, n_points: int = 600, width: int = 320,
+    height: int = 240, motion: str = "arc", seed: int = 0,
+    fps: float = 10.0, odom_rate: float = 100.0, odom_noise: float = 0.0,
+    with_laser: bool = False, n_beams: int = 180,
+    room: tuple = (-3.0, 18.0, -8.0, 8.0), laser_noise: float = 0.0,
+    with_depth: bool = False, device="cuda",
+) -> SimSequence:
+    """A stereo sequence of a robot moving through a starfield of n_points
+    splats; motion 'arc' (forward and turning), 'forward' or 'yaw'
+    (rotation in place).  The camera lives on ``device``; the rendering,
+    odometry and scans are numpy.  with_depth adds the left view's splatted
+    depth, with_laser an n_beams scan a frame of the walls of ``room``."""
+    rng = np.random.default_rng(seed)
+    cam = default_camera(width, height, device)
+    points = np.stack([rng.uniform(1.0, 14.0, n_points),
+                       rng.uniform(-7.0, 7.0, n_points),
+                       rng.uniform(-2.5, 2.5, n_points)],
+                      axis=-1).astype(np.float32)
+    intensities = rng.uniform(90.0, 230.0, n_points).astype(np.float32)
+
+    t = np.arange(n_frames) / fps
+    if motion == "forward":
+        xs, ys, yaws = 0.35 * t, 0.0 * t, 0.0 * t
+    elif motion == "yaw":
+        xs, ys, yaws = 0.0 * t, 0.0 * t, 0.25 * t
+    else:  # arc
+        xs, ys, yaws = 0.35 * t, 0.08 * t * t * 0.5, 0.08 * t
+    poses = _poses_from_xyyaw(xs, ys, yaws)
+
+    t_ir = cam.t_ir.cpu().numpy()
+    baseline = float(cam.baseline)
+    fx, fy = float(cam.fx), float(cam.fy)
+    cx, cy = float(cam.cx), float(cam.cy)
+    lefts, rights, depths = [], [], []
+    for i in range(n_frames):
+        t_rw = np.linalg.inv(poses[i])  # world -> robot
+        p_robot = (t_rw[:3, :3] @ points.T).T + t_rw[:3, 3]
+        p_img = (t_ir[:3, :3] @ p_robot.T).T + t_ir[:3, 3]
+        z = p_img[:, 2]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            ul = p_img[:, 0] / z * fx + cx
+            vl = p_img[:, 1] / z * fy + cy
+            ur = (p_img[:, 0] - baseline) / z * fx + cx
+        left_uvz = np.stack([ul, vl, z], -1)
+        lefts.append(_render(left_uvz, intensities, width, height))
+        rights.append(_render(np.stack([ur, vl, z], -1), intensities, width,
+                              height))
+        if with_depth:
+            depths.append(_render_depth(left_uvz, width, height))
+
+    stamps = np.arange(n_frames, dtype=np.float64) / fps
+    # Wheel odometry: (x, y, yaw) interpolated linearly between frames.
+    n_odom = int(np.ceil(n_frames / fps * odom_rate)) + 2
+    odom = np.zeros((n_odom, 8), dtype=np.float64)
+
+    def xyyaw(T):
+        return np.array([T[0, 3], T[1, 3], np.arctan2(T[1, 0], T[0, 0])])
+
+    for k in range(n_odom):
+        tk = k / odom_rate
+        tf = min(tk * fps, n_frames - 1)
+        i0 = int(np.floor(tf))
+        i1 = min(i0 + 1, n_frames - 1)
+        a = tf - i0
+        s = (1 - a) * xyyaw(poses[i0]) + a * xyyaw(poses[i1])
+        if odom_noise > 0:
+            s += rng.normal(scale=odom_noise, size=3)
+        odom[k] = [tk, s[0], s[1], 0.0, 0.0, 0.0, s[2], 1.0]
+
+    laser_scans = None
+    if with_laser:
+        laser_scans = np.stack([
+            _scan_world(poses[i], room, (), n_beams, rng, laser_noise)
+            for i in range(n_frames)])
+    return SimSequence(
+        left=np.stack(lefts), right=np.stack(rights), stamps=stamps,
+        poses=poses, wheel_odom=odom, camera=cam, laser_scans=laser_scans,
+        room=room if with_laser else None, points=points,
+        depth=np.stack(depths) if with_depth else None)
+
+
+# --- the textured room -------------------------------------------------------
 
 # (world cell size m, weight, sharp): sharp = nearest-neighbour mosaic.
 _TEX_OCTAVES = ((1.1, 0.34, False), (0.33, 0.33, False), (0.13, 0.33, True))
@@ -125,8 +264,10 @@ def _fma(a, b, c):
 
 def _render_views(planes, origins, rots, fx, fy, cx, cy, width: int,
                   height: int, device):
-    """Ray-cast V views on ``device`` -> images [V, H, W] in [0, 1] (float32
-    renders, returned as float64 numpy like the reference's)."""
+    """Ray-cast V views on ``device`` -> (images [V, H, W] in [0, 1], z-depth
+    [V, H, W], 0 where no plane is hit): float32 renders, returned as
+    float64 numpy like the reference's.  The pixel directions have z = 1,
+    so a hit's ray parameter is its depth."""
     f32 = dict(dtype=torch.float32, device=device)
 
     def stack(attr):
@@ -149,6 +290,7 @@ def _render_views(planes, origins, rots, fx, fy, cx, cy, width: int,
     o_all = torch.tensor(origins, **f32)
     r_all = torch.tensor(rots, **f32)
     out = np.empty((len(origins), height, width), np.float64)
+    deps = np.empty((len(origins), height, width), np.float64)
     for v in range(len(origins)):
         o = o_all[v]
         d_w = _mm(d_img, r_all[v].T)  # [P, 3]
@@ -171,26 +313,43 @@ def _render_views(planes, origins, rots, fx, fy, cx, cy, width: int,
             return flat_grids[base + torch.remainder(a, S) * S
                               + torch.remainder(b, S)]
 
-        tex = torch.zeros_like(uu_w)
-        for cell, wgt, sharp in _TEX_OCTAVES:
-            gu = uu_w / cell
-            gv = vv_w / cell
+        # Each octave's value x_k, then the weighted sum, rounded where the
+        # reference's compiled program fuses a product into a sum (a
+        # difference of an ulp moves an 8-bit pixel where it lies near a
+        # level): a = fma(g10, fu, g00 (1 - fu)), likewise b, x = fma(a,
+        # 1 - fv, b fv); tex = fma(w0, x0, w1 x1), then fma(w_k, x_k, tex).
+        tex = None
+        for k, (cell, wgt, sharp) in enumerate(_TEX_OCTAVES):
+            # The constant cell size divides as a product with its float32
+            # reciprocal there; a true quotient differs by an ulp, and the
+            # floor turns that into another texture cell.
+            recip = float(np.float32(1.0) / np.float32(cell))
+            gu = uu_w * recip
+            gv = vv_w * recip
             iu = torch.floor(gu)
             iv = torch.floor(gv)
             iu_i, iv_i = iu.to(torch.int64), iv.to(torch.int64)
             if sharp:
-                tex = tex + wgt * pick(iu_i, iv_i)
+                x = pick(iu_i, iv_i)
             else:
-                fu = gu - iu
-                fv = gv - iv
-                tex = tex + wgt * (
-                    (pick(iu_i, iv_i) * (1 - fu) + pick(iu_i + 1, iv_i) * fu)
-                    * (1 - fv)
-                    + (pick(iu_i, iv_i + 1) * (1 - fu)
-                       + pick(iu_i + 1, iv_i + 1) * fu) * fv)
-        img = torch.where(torch.isfinite(best_t), tex, torch.zeros_like(tex))
+                fu, fv = gu - iu, gv - iv
+                a = _fma(pick(iu_i + 1, iv_i), fu, pick(iu_i, iv_i) * (1 - fu))
+                b = _fma(pick(iu_i + 1, iv_i + 1), fu,
+                         pick(iu_i, iv_i + 1) * (1 - fu))
+                x = _fma(a, 1 - fv, b * fv)
+            w = torch.full_like(x, float(np.float32(wgt)))
+            if k == 0:
+                first = (w, x)
+            elif k == 1:
+                tex = _fma(*first, w * x)
+            else:
+                tex = _fma(w, x, tex)
+        hit = torch.isfinite(best_t)
+        img = torch.where(hit, tex, torch.zeros_like(tex))
+        dep = torch.where(hit, best_t, torch.zeros_like(best_t))
         out[v] = img.reshape(height, width).cpu().numpy()
-    return out
+        deps[v] = dep.reshape(height, width).cpu().numpy()
+    return out, deps
 
 
 def _square_path(room, margin=4.0, corner_radius=1.5):
@@ -320,11 +479,14 @@ def generate_textured_sequence(
     z_floor: float = -0.6, z_ceil: float = 1.4, n_pillars: int = 6,
     pixel_noise: float = 2.0, exposure_drift: float = 0.02,
     loops: float = 1.0, speed: float | None = None, with_laser: bool = False,
-    n_beams: int = 180, laser_noise: float = 0.0, device="cuda",
+    n_beams: int = 180, laser_noise: float = 0.0, with_depth: bool = False,
+    device="cuda",
 ) -> SimSequence:
     """Render a textured closed-room sequence (ray cast on ``device``, where
     the returned camera lives too); with_laser adds an n_beams 2D scan a
-    frame of the walls and pillars, drawn after the wheel odometry."""
+    frame of the walls and pillars, drawn after the wheel odometry;
+    with_depth the left view's z-depth (float32 m, 0 where no plane is
+    hit)."""
     rng = np.random.default_rng(seed)
     cam = default_camera(width, height, device)
     xs, ys, yaws = _trajectory(motion, n_frames, fps, room, loops, speed)
@@ -336,10 +498,7 @@ def generate_textured_sequence(
         xs, ys = xs - x_off, ys - y_off
         room = (room[0] - x_off, room[1] - x_off, room[2] - y_off,
                 room[3] - y_off)
-    six = torch.tensor(np.stack([xs, ys, np.zeros_like(xs),
-                                 np.zeros_like(xs), np.zeros_like(xs), yaws],
-                                -1), dtype=torch.float32)
-    poses = xyzrpy_to_mat(*six.unbind(-1)).numpy().astype(np.float32)
+    poses = _poses_from_xyyaw(xs, ys, yaws)
     planes, pillars = _make_world(rng, room, z_floor, z_ceil, n_pillars,
                                   np.stack([xs, ys], -1))
 
@@ -354,7 +513,7 @@ def generate_textured_sequence(
         rots[i] = t_wi[:3, :3]
         origins[i, 0] = t_wi[:3, 3]
         origins[i, 1] = t_wi[:3, 3] + rots[i] @ np.array([baseline, 0.0, 0.0])
-    imgs = _render_views(planes, origins.reshape(-1, 3),
+    imgs, deps = _render_views(planes, origins.reshape(-1, 3),
                          np.repeat(rots, 2, axis=0), fx, fy, cx, cy, width,
                          height, device)
 
@@ -384,10 +543,13 @@ def generate_textured_sequence(
     return SimSequence(left=np.stack(lefts), right=np.stack(rights),
                        stamps=stamps, poses=poses, wheel_odom=odom,
                        camera=cam, laser_scans=laser_scans,
-                       room=room if with_laser else None)
+                       room=room if with_laser else None,
+                       points=np.zeros((0, 3), np.float32),
+                       depth=(deps[0::2].astype(np.float32) if with_depth
+                              else None))
 
 
-_SIM_CACHE_TAG = "visfs_tpu_torch-sim-2"  # 2: laser scans and room
+_SIM_CACHE_TAG = "visfs_tpu_torch-sim-3"  # 3: depth (and the VGA rounding)
 
 
 def cached_textured_sequence(cache_dir=None, **kwargs) -> SimSequence:
@@ -411,16 +573,21 @@ def cached_textured_sequence(cache_dir=None, **kwargs) -> SimSequence:
                 right=z["right"].astype(np.float32), stamps=z["stamps"],
                 poses=z["poses"], wheel_odom=z["wheel_odom"], camera=cam,
                 laser_scans=z["laser_scans"] if "laser_scans" in z else None,
-                room=tuple(z["room"]) if "room" in z else None)
+                room=tuple(z["room"]) if "room" in z else None,
+                points=z["points"],
+                depth=z["depth"] if "depth" in z else None)
     seq = generate_textured_sequence(device=device, **kwargs)
     left = np.clip(seq.left, 0, 255).astype(np.uint8)
     right = np.clip(seq.right, 0, 255).astype(np.uint8)
     os.makedirs(cache_dir, exist_ok=True)
     tmp = path + ".tmp.npz"
-    laser = {} if seq.laser_scans is None else dict(
+    extra = {} if seq.laser_scans is None else dict(
         laser_scans=seq.laser_scans, room=np.asarray(seq.room))
+    if seq.depth is not None:  # float32 metres, not quantized
+        extra["depth"] = seq.depth
     np.savez_compressed(tmp, left=left, right=right, stamps=seq.stamps,
-                        poses=seq.poses, wheel_odom=seq.wheel_odom, **laser)
+                        poses=seq.poses, wheel_odom=seq.wheel_odom,
+                        points=seq.points, **extra)
     os.replace(tmp, path)
     return seq._replace(left=left.astype(np.float32),
                         right=right.astype(np.float32))

@@ -9,7 +9,10 @@ the reference expresses as two banded matmuls (a TPU lowering).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from ..core.lie import fma
 
 _BINOMIAL5 = (1.0 / 16, 4.0 / 16, 6.0 / 16, 4.0 / 16, 1.0 / 16)
 
@@ -91,3 +94,67 @@ def edge_pad(img, pad: int):
     rows = _edge_index(h, pad, img.device)
     cols = _edge_index(w, pad, img.device)
     return img[rows[:, None], cols[None, :]]
+
+
+def in_bounds(pts, width, height, margin=0.0):
+    """[..., 2] (x, y) points inside the image with a margin."""
+    x, y = pts[..., 0], pts[..., 1]
+    return ((x >= margin) & (x < width - margin) & (y >= margin)
+            & (y < height - margin))
+
+
+def clahe_luts(img, clip_limit: float = 3.0, grid: int = 8,
+               n_bins: int = 256):
+    """CLAHE's per-tile look-up tables [grid, grid, n_bins]: each tile's
+    histogram clipped at clip_limit times the mean bin, the excess spread
+    evenly, and its CDF scaled to [0, n_bins - 1]."""
+    h, w = img.shape
+    th, tw = h // grid, w // grid
+    tiles = img[:th * grid, :tw * grid].reshape(grid, th, grid, tw)
+    tiles = tiles.permute(0, 2, 1, 3).reshape(grid * grid, th * tw)
+    bins = torch.clamp(tiles.to(torch.int64), 0, n_bins - 1)
+    # adds of 1.0: exact counts below 2^24
+    hist = torch.zeros((grid * grid, n_bins), dtype=torch.float32,
+                       device=img.device).scatter_add_(
+                           1, bins, torch.ones_like(tiles))
+    clip = clip_limit * (th * tw) / n_bins
+    excess = torch.sum(torch.clamp(hist - clip, min=0.0), dim=1,
+                       keepdim=True)
+    hist = torch.clamp(hist, max=clip) + excess / n_bins
+    cdf = torch.cumsum(hist, dim=1)
+    cdf = cdf / cdf[:, -1:]
+    return (cdf * (n_bins - 1)).reshape(grid, grid, n_bins)
+
+
+def clahe(img, clip_limit: float = 3.0, grid: int = 8, n_bins: int = 256):
+    """Contrast-limited adaptive histogram equalization (System.cpp:107-111),
+    cv::createCLAHE(3.0, (8, 8)) in fixed shapes: per-tile clipped
+    histograms -> CDF look-up tables, interpolated bilinearly between tile
+    centres.  Tiles cover the first (H // grid) * grid rows and
+    (W // grid) * grid columns; values in [0, 255]; float32 out."""
+    h, w = img.shape
+    th, tw = h // grid, w // grid
+    dev = img.device
+    luts = clahe_luts(img, clip_limit, grid, n_bins)
+
+    # Rounded as the reference's compiled program rounds them: the constant
+    # divisors as products with their float32 reciprocals, and each
+    # weighted pair of taps as one fused multiply-add (fma(1 - f, a, f b)).
+    ys = (torch.arange(h, dtype=torch.float32, device=dev) - th / 2) \
+        * float(np.float32(1.0) / np.float32(th))
+    xs = (torch.arange(w, dtype=torch.float32, device=dev) - tw / 2) \
+        * float(np.float32(1.0) / np.float32(tw))
+    y0 = torch.clamp(torch.floor(ys).to(torch.int64), 0, grid - 1)
+    x0 = torch.clamp(torch.floor(xs).to(torch.int64), 0, grid - 1)
+    y1 = torch.clamp(y0 + 1, 0, grid - 1)
+    x1 = torch.clamp(x0 + 1, 0, grid - 1)
+    fy = torch.clamp(ys - y0.to(torch.float32), 0.0, 1.0)[:, None]
+    fx = torch.clamp(xs - x0.to(torch.float32), 0.0, 1.0)[None, :]
+    v = torch.clamp(img.to(torch.int64), 0, n_bins - 1)
+    lut00 = luts[y0[:, None], x0[None, :], v]
+    lut01 = luts[y0[:, None], x1[None, :], v]
+    lut10 = luts[y1[:, None], x0[None, :], v]
+    lut11 = luts[y1[:, None], x1[None, :], v]
+    top = fma(1 - fx, lut00, fx * lut01)
+    bottom = fma(1 - fx, lut10, fx * lut11)
+    return fma((1 - fy).expand_as(top), top, fy * bottom).to(img.dtype)

@@ -128,6 +128,14 @@ class FrameOutput(NamedTuple):
     velocity: torch.Tensor  # [6] xyzrpy/s
     stamp: torch.Tensor
     covariance: torch.Tensor  # [6, 6]
+    # Per-stage wall times in seconds (EstimateInfo's timing fields,
+    # Signature.h:62-73): measured around the synced stages with
+    # System(profile_stages=True), 0.0 in the fused step (its stages have
+    # no host-visible boundary).
+    time_tracking: float = 0.0
+    time_estimation: float = 0.0
+    local_bundle_time: float = 0.0
+    time_total: float = 0.0
 
 
 def init_feature_table(capacity: int, window: int, device) -> FeatureTable:

@@ -1,15 +1,19 @@
 """System: the top-level engine — one fused step per frame (torch port of
-visfs_tpu.slam.system, SensorStrategies 0 and 2-5).
+visfs_tpu.slam.system, SensorStrategies 0-5).
 
 ``vo_step`` runs track -> prepare -> BA -> finalize on the device given to
 ``System``.  The step keeps the reference's shape discipline: fixed shapes,
 no ``.item()``, no boolean-mask indexing and no Python branch on tensor
 data, so it never waits for the device and can later be captured in a CUDA
 graph.  Results stay on the device until ``output_odometry_info`` or
-``drain_outputs`` fetches them.
+``drain_outputs`` fetches them.  ``System(profile_stages=True)`` runs the
+same four stage functions with a device synchronisation after each, and
+fills FrameOutput's ``time_*`` fields from the host clock (the reference's
+per-thread stage timers); the fused step leaves them 0.
 
 Host API (reference System.h:30-53): ``init``, ``input_primary_sensor_data``
-(with a laser scan at strategies >= 3), ``input_wheel_odometry``,
+(the stereo pair, or at SensorStrategy 1 the image and its depth map in
+metres; with a laser scan at strategies >= 3), ``input_wheel_odometry``,
 ``input_wheel_odometry_batch``, ``output_odometry_info``, ``drain_outputs``,
 ``run_sequence``.  Scans and wheel rows arrive as numpy every frame; they
 are padded and masked on the host and copied through pinned memory with
@@ -20,7 +24,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -29,10 +33,12 @@ from ..config import VISFSConfig, config_from_parameters
 from ..core.camera import StereoCamera, make_stereo_camera
 from ..core import prng
 from ..core.lie import mat_to_quat, mat_to_xyzrpy, se3_matrix
+from ..ops.image import clahe
 from ..ops.lk import LKParams, lk_pad
 from ..ops.pnp import PnPSettings
 from ..solver import ba as ba_mod
 from ..solver.ba import BASettings
+from ..utils.timer import StageTimer
 from . import extrapolator as extr
 from .estimator import (EstimatorSettings, estimator_finalize,
                         estimator_prepare, marginalize)
@@ -44,8 +50,10 @@ def build_cfg_hash(cfg: VISFSConfig) -> tuple:
     """Static tracker/system extras of the step."""
     return (cfg.tracker_max_features, cfg.tracker_quality_level,
             cfg.tracker_min_distance, cfg.tracker_flow_back,
-            cfg.tracker_min_depth, cfg.tracker_max_depth,
-            cfg.system_wheel_odometry_freq)
+            cfg.tracker_min_depth, cfg.tracker_max_depth, cfg.system_clahe,
+            cfg.system_wheel_odometry_freq,
+            cfg.tracker_cull_by_fundation_matrix,
+            cfg.tracker_fundation_pixel_error)
 
 
 def _build_settings(cfg: VISFSConfig) -> EstimatorSettings:
@@ -84,30 +92,38 @@ def _build_settings(cfg: VISFSConfig) -> EstimatorSettings:
     )
 
 
-_STRATEGIES = (0, 2, 3, 4, 5)
-
-
 def _check_supported(cfg: VISFSConfig):
-    if cfg.system_sensor_strategy not in _STRATEGIES:
+    if cfg.system_sensor_strategy not in range(6):
         raise NotImplementedError(
-            "visfs_tpu_torch ports SensorStrategy 0 and 2-5 (RGBD, 1, is "
-            f"not ported), got {cfg.system_sensor_strategy}")
-    if cfg.system_clahe:
-        raise NotImplementedError("System/CLAHE is not ported")
-    if cfg.tracker_cull_by_fundation_matrix:
-        raise NotImplementedError(
-            "Tracker/CullByFundationMatrix is not ported")
+            "SensorStrategy is 0 (stereo), 1 (RGBD), 2 (stereo and wheel) or "
+            f"3-5 (with the laser), got {cfg.system_sensor_strategy}")
 
 
-def vo_step(state: VOState, left, right, stamp, cam: StereoCamera,
-            cfg_est: EstimatorSettings, lk_params: LKParams,
-            cfg_hash: tuple, scan_points=None, scan_mask=None,
-            scan_times=None):
-    """The fused step: track -> prepare -> BA -> finalize; scan_points [K,
-    3] laser-frame, scan_mask [K] and scan_times [K] at strategies >= 3.
-    Returns (new VOState, FrameOutput)."""
+class TrackStage(NamedTuple):
+    """The front-end stage's output: everything the back-end stages use."""
+
+    trk: object  # tracker.TrackerOutput
+    window: object  # WindowState after marginalization
+    guess: torch.Tensor  # [4, 4] motion prior
+    wheel_pose: torch.Tensor  # [4, 4]
+    wheel_ok: torch.Tensor
+    key: torch.Tensor  # the next carried rng key
+    subkey: torch.Tensor  # the estimator's RANSAC key
+    left: torch.Tensor  # post-CLAHE images (prev_* of the next frame)
+    right: torch.Tensor
+
+
+def track_stage(state: VOState, left, right, stamp, cam: StereoCamera,
+                cfg_est: EstimatorSettings, lk_params: LKParams,
+                cfg_hash: tuple) -> TrackStage:
+    """Front end (the reference's Tracker thread, Tracker.cpp:167-419):
+    CLAHE, the window slide, the motion prior, tracking."""
     (max_features, quality_level, min_distance, flow_back, min_depth,
-     max_depth, wheel_freq) = cfg_hash
+     max_depth, use_clahe, wheel_freq, cull_fund, fund_thresh) = cfg_hash
+    if use_clahe:
+        # At SensorStrategy 1 `right` is the depth map and the reference
+        # equalizes it too (visfs_tpu/slam/system.py:133-134); matched.
+        left, right = clahe(left), clahe(right)
 
     # Slide the window (previous frame's keyframe decision), motion prior.
     features, window = marginalize(state.features, state.window,
@@ -118,8 +134,7 @@ def vo_step(state: VOState, left, right, stamp, cam: StereoCamera,
         state.odom, stamp, state.prev_stamp, state.velocity,
         state.velocity_valid, prev_wheel6, state.prev_wheel_valid,
         cfg_est.sensor_strategy, wheel_freq)
-    keys = prng.split(state.rng_key, 3)
-    key, subkey = keys[0], keys[1]
+    key, subkey, trk_key = prng.split(state.rng_key, 3)
 
     h, w = state.prev_left.shape
     trk = tracker_step(
@@ -129,19 +144,40 @@ def vo_step(state: VOState, left, right, stamp, cam: StereoCamera,
         max_features=max_features, quality_level=quality_level,
         min_distance=min_distance, min_inliers=cfg_est.min_inliers,
         flow_back=flow_back, min_depth=min_depth, max_depth=max_depth,
-        lk_params=lk_params,
-        prev_pyr=carried_pyramid(state.prev_pyr, h, w, lk_params),
-    )
-    problem, ctx = estimator_prepare(
-        state._replace(window=window), trk, stamp, wheel_pose, wheel_ok,
-        guess, cam, cfg_est, subkey, scan_points=scan_points,
-        scan_mask=scan_mask, scan_times=scan_times)
-    res_ba = ba_mod.local_optimize(problem, cfg_est.ba)
-    est = estimator_finalize(state, ctx, res_ba, stamp, cam, cfg_est)
+        lk_params=lk_params, rgbd=cfg_est.sensor_strategy == 1,
+        cull_fundamental=cull_fund, fundamental_threshold=fund_thresh,
+        rng_key=trk_key,
+        prev_pyr=carried_pyramid(state.prev_pyr, h, w, lk_params))
+    return TrackStage(trk=trk, window=window, guess=guess,
+                      wheel_pose=wheel_pose, wheel_ok=wheel_ok, key=key,
+                      subkey=subkey, left=left, right=right)
 
+
+def prepare_stage(state: VOState, ts: TrackStage, stamp, cam: StereoCamera,
+                  cfg_est: EstimatorSettings, scan_points=None,
+                  scan_mask=None, scan_times=None):
+    """Back-end problem assembly (Estimator.cpp:166-252): (BA problem,
+    estimator context)."""
+    return estimator_prepare(
+        state._replace(window=ts.window), ts.trk, stamp, ts.wheel_pose,
+        ts.wheel_ok, ts.guess, cam, cfg_est, ts.subkey,
+        scan_points=scan_points, scan_mask=scan_mask, scan_times=scan_times)
+
+
+def ba_stage(problem, cfg_est: EstimatorSettings):
+    """The local bundle adjustment."""
+    return ba_mod.local_optimize(problem, cfg_est.ba)
+
+
+def finalize_stage(state: VOState, ts: TrackStage, ctx, res_ba, stamp,
+                   cam: StereoCamera, cfg_est: EstimatorSettings):
+    """Post-BA fusion and state assembly (Estimator.cpp:275-449):
+    (new VOState, FrameOutput)."""
+    est = estimator_finalize(state, ctx, res_ba, stamp, cam, cfg_est)
+    trk, wheel_pose, wheel_ok = ts.trk, ts.wheel_pose, ts.wheel_ok
     new_state = VOState(
         features=est.features, window=est.window, counters=est.counters,
-        odom=state.odom, prev_left=left, prev_right=right,
+        odom=state.odom, prev_left=ts.left, prev_right=ts.right,
         has_prev=torch.ones_like(state.has_prev),
         pose_q=est.pose_q, pose_t=est.pose_t,
         prev_wheel_q=torch.where(wheel_ok, mat_to_quat(wheel_pose[:3, :3]),
@@ -153,7 +189,7 @@ def vo_step(state: VOState, left, right, stamp, cam: StereoCamera,
         prev_stamp=stamp, next_fid=trk.next_fid,
         frame_count=state.frame_count + 1, keyframe=est.keyframe,
         lost=est.lost, blocked_uv=est.blocked_uv,
-        blocked_valid=est.blocked_valid, rng_key=key, laser=est.laser,
+        blocked_valid=est.blocked_valid, rng_key=ts.key, laser=est.laser,
         prev_pyr=trk.left_pyr,
     )
     out = FrameOutput(
@@ -166,11 +202,28 @@ def vo_step(state: VOState, left, right, stamp, cam: StereoCamera,
     return new_state, out
 
 
+def vo_step(state: VOState, left, right, stamp, cam: StereoCamera,
+            cfg_est: EstimatorSettings, lk_params: LKParams,
+            cfg_hash: tuple, scan_points=None, scan_mask=None,
+            scan_times=None):
+    """The fused step: track -> prepare -> BA -> finalize; scan_points [K,
+    3] laser-frame, scan_mask [K] and scan_times [K] at strategies >= 3.
+    Returns (new VOState, FrameOutput)."""
+    ts = track_stage(state, left, right, stamp, cam, cfg_est, lk_params,
+                     cfg_hash)
+    problem, ctx = prepare_stage(state, ts, stamp, cam, cfg_est, scan_points,
+                                 scan_mask, scan_times)
+    res_ba = ba_stage(problem, cfg_est)
+    return finalize_stage(state, ts, ctx, res_ba, stamp, cam, cfg_est)
+
+
 def _outputs_to_numpy(outs):
     """Fetch a list of device FrameOutputs with one transfer per field."""
     if not outs:
         return []
     fields = [torch.stack([getattr(o, f) for o in outs]).cpu().numpy()
+              if isinstance(getattr(outs[0], f), torch.Tensor)
+              else np.asarray([getattr(o, f) for o in outs], np.float32)
               for f in FrameOutput._fields]
     return [FrameOutput(*[a[i] for a in fields]) for i in range(len(outs))]
 
@@ -192,8 +245,6 @@ class System:
                  feature_capacity_factor: int = 3, seed: int = 0,
                  scan_capacity: int = 512, submap_extent_cells: int = 256,
                  profile_stages: bool = False):
-        if profile_stages:
-            raise NotImplementedError("profile_stages is not ported")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("System: device 'cuda' requested but CUDA is "
@@ -214,6 +265,10 @@ class System:
         self.camera: Optional[StereoCamera] = None
         self.state: Optional[VOState] = None
         self._results = collections.deque()
+        # profile_stages: the four stages with a device synchronisation
+        # after each, FrameOutput's time_* fields from the host clock (a
+        # diagnostic; the fused step waits for nothing and leaves them 0).
+        self.profile_stages = profile_stages
 
     def init(self, fx, fy, cx, cy, baseline, *, width, height, fxr=None,
              fyr=None, cxr=None, cyr=None, transform_camera_to_robot=None,
@@ -281,10 +336,11 @@ class System:
 
     def input_primary_sensor_data(self, stamp: float, left, right,
                                   scan=None, scan_times=None):
-        """Feed one stereo frame (+ at strategies >= 3 an optional [K, 3]
-        laser-frame scan and [K] per-point time offsets for the de-skew,
-        <= 0 with the newest point at 0); the result is queued on the
-        device."""
+        """Feed one stereo frame, at SensorStrategy 1 the image and its
+        depth map in metres as ``right`` (+ at strategies >= 3 an optional
+        [K, 3] laser-frame scan and [K] per-point time offsets for the
+        de-skew, <= 0 with the newest point at 0); the result is queued on
+        the device."""
         if self.state is None:
             raise RuntimeError("call init() first")
         stamp_t = torch.full((), float(stamp), dtype=torch.float32,
@@ -293,11 +349,39 @@ class System:
         if self.cfg.system_sensor_strategy >= 3:
             pts, msk, tms = self._scan_inputs(scan, scan_times)
             scan_args = dict(scan_points=pts, scan_mask=msk, scan_times=tms)
-        self.state, out = vo_step(
-            self.state, self._as_image(left), self._as_image(right), stamp_t,
-            self.camera, self.settings, self.lk_params, self._cfg_hash,
-            **scan_args)
+        args = (self._as_image(left), self._as_image(right), stamp_t)
+        if self.profile_stages:
+            out = self._step_profiled(*args, **scan_args)
+        else:
+            self.state, out = vo_step(self.state, *args, self.camera,
+                                      self.settings, self.lk_params,
+                                      self._cfg_hash, **scan_args)
         self._results.append(out)
+
+    def _step_profiled(self, left, right, stamp, scan_points=None,
+                       scan_mask=None, scan_times=None):
+        """The step's four stages, each waited for, with their host wall
+        times (s) in the output's time_* fields.  ``stamp`` lies on the
+        System's device, so waiting for it waits for all the device's
+        work."""
+        cam, cfg = self.camera, self.settings
+        timer = StageTimer()
+        timer.elapsed(sync=stamp)  # the earlier frames' work is not timed
+        ts = track_stage(self.state, left, right, stamp, cam, cfg,
+                         self.lk_params, self._cfg_hash)
+        t_track = timer.elapsed(sync=stamp)
+        problem, ctx = prepare_stage(self.state, ts, stamp, cam, cfg,
+                                     scan_points, scan_mask, scan_times)
+        t_prepare = timer.elapsed(sync=stamp)
+        res_ba = ba_stage(problem, cfg)
+        t_ba = timer.elapsed(sync=stamp)
+        self.state, out = finalize_stage(self.state, ts, ctx, res_ba, stamp,
+                                         cam, cfg)
+        t_estimation = t_prepare + t_ba + timer.elapsed(sync=stamp)
+        return out._replace(time_tracking=np.float32(t_track),
+                            time_estimation=np.float32(t_estimation),
+                            local_bundle_time=np.float32(t_ba),
+                            time_total=np.float32(t_track + t_estimation))
 
     def input_wheel_odometry(self, stamp: float, pose6, velocity6=None):
         """One wheel-odometry sample (x, y, z, roll, pitch, yaw) at stamp."""

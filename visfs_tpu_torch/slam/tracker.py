@@ -2,11 +2,16 @@
 (torch port of visfs_tpu.slam.tracker).
 
 Temporal LK from the previous left image with a projected initial guess and
-a 1.5 px reverse-flow gate, lost-tracking detection, GFTT top-up, stereo LK
-with a 0.5 px reverse gate and triangulation, and the feature-table write.
-At stage entry the newest occupied observation column is W-2; the current
-frame writes column W-1.  Live tracks are compacted with a stable argsort
-and the reference's dropping scatters become writes into a spare row.
+a 1.5 px reverse-flow gate (or, with FlowBack off and
+Tracker/CullByFundationMatrix, the fundamental-matrix RANSAC cull of
+ops/fundamental.py instead), lost-tracking detection, GFTT top-up, then the
+depth of every feature: stereo LK with a 0.5 px reverse gate and
+triangulation, or at RGBD (SensorStrategy 1) a lookup in the depth image
+with a virtual right observation uR = uL - bf/z; and the feature-table
+write.  At stage entry the newest occupied observation column is W-2; the
+current frame writes column W-1.  Live tracks are compacted with a stable
+argsort and the reference's dropping scatters become writes into a spare
+row.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import torch
 
 from ..core.camera import StereoCamera, triangulate_stereo
 from ..core.lie import mat_apply, mat_inv_se3
+from ..ops.fundamental import cull_with_fundamental
 from ..ops.gftt import gftt_detect
 from ..ops.lk import (LKParams, LKPyramid, build_lk_pyramid, lk_pad,
                       lk_track_bidirectional_pyr, lk_track_pyr)
@@ -56,14 +62,12 @@ def tracker_step(features: FeatureTable, prev_left, prev_right, left, right,
                  quality_level: float, min_distance: int, min_inliers: int,
                  flow_back: bool, min_depth: float, max_depth: float,
                  lk_params: LKParams, rgbd: bool = False,
-                 cull_fundamental: bool = False, prev_pyr=None
-                 ) -> TrackerOutput:
-    if rgbd:
-        raise NotImplementedError("tracker_step: the RGBD front end "
-                                  "(SensorStrategy 1) is not ported")
-    if cull_fundamental:
-        raise NotImplementedError("tracker_step: Tracker/"
-                                  "CullByFundationMatrix is not ported")
+                 cull_fundamental: bool = False,
+                 fundamental_threshold: float = 1.0, rng_key=None,
+                 prev_pyr=None) -> TrackerOutput:
+    """One frame's tracking.  At rgbd ``right`` is the depth image (m) and
+    no right pyramid is built; with flow_back off and cull_fundamental the
+    cull draws its samples from rng_key."""
     Fcap = features.capacity
     W = features.window
     prev_col, cur_col = W - 2, W - 1
@@ -72,7 +76,7 @@ def tracker_step(features: FeatureTable, prev_left, prev_right, left, right,
     if prev_pyr is None:
         prev_pyr = build_lk_pyramid(prev_left, lk_params)
     left_pyr = build_lk_pyramid(left, lk_params)
-    right_pyr = build_lk_pyramid(right, lk_params)
+    right_pyr = None if rgbd else build_lk_pyramid(right, lk_params)
 
     # 1. Temporal tracking prev -> cur, compacted to live features.
     M = max_features
@@ -99,6 +103,13 @@ def tracker_step(features: FeatureTable, prev_left, prev_right, left, right,
     else:
         trk_c = lk_track_pyr(prev_pyr, left_pyr, prev_uv_c, init_uv_c,
                              comp_live, lk_params)
+        if cull_fundamental:
+            # Tracker.cpp:275-277, 83-96: epipolar RANSAC in place of the
+            # reverse-flow gate.
+            inl, _ = cull_with_fundamental(
+                prev_uv_c, trk_c.points, trk_c.status & comp_live, rng_key,
+                threshold=fundamental_threshold)
+            trk_c = trk_c._replace(status=trk_c.status & inl)
 
     pts = trk_c.points
     inb_c = ((pts[:, 0] >= 0) & (pts[:, 0] < cam.width)
@@ -122,26 +133,46 @@ def tracker_step(features: FeatureTable, prev_left, prev_right, left, right,
     new_uv = det.points
     new_cand = det.valid & (rank < budget)
 
-    # 3. Stereo LK matching + triangulation.
+    # 3. Depth: stereo LK matching + triangulation, or (RGBD) the depth
+    # image sampled at the int-truncated pixel with a virtual right
+    # observation uR = uL - bf/z for the same BA stereo factor.
     all_uv = torch.cat([pts, new_uv], dim=0)  # [2M]
     all_mask = torch.cat([tm_c, new_cand], dim=0)
-    if flow_back:
-        st = lk_track_bidirectional_pyr(left_pyr, right_pyr, all_uv, all_uv,
-                                        all_mask, lk_params, fb_threshold=0.5)
+    if rgbd:
+        xi = torch.clamp(all_uv[:, 0].to(torch.int32), 0, cam.width - 1)
+        yi = torch.clamp(all_uv[:, 1].to(torch.int32), 0, cam.height - 1)
+        z = right[yi.long(), xi.long()]
+        near_ok = z > 0.0 if min_depth < 0.0 else z > min_depth
+        far_ok = (torch.ones_like(near_ok) if max_depth <= 0.0
+                  else z <= max_depth)
+        cur_ok = all_mask & torch.isfinite(z) & near_ok & far_ok
+        z_safe = torch.where(cur_ok, z, torch.ones_like(z))
+        sp = torch.stack([all_uv[:, 0] - cam.bf / z_safe, all_uv[:, 1]],
+                         dim=-1)
+        p_img = torch.stack([(all_uv[:, 0] - cam.cx) / cam.fx * z_safe,
+                             (all_uv[:, 1] - cam.cy) / cam.fy * z_safe,
+                             z_safe], dim=-1)
+        p3d_robot = mat_apply(cam.t_ri, p_img)
+        p_img_z = torch.where(cur_ok, z_safe, torch.zeros_like(z_safe))
     else:
-        st = lk_track_pyr(left_pyr, right_pyr, all_uv, all_uv, all_mask,
-                          lk_params)
-    sp = st.points
-    st_inb = ((sp[:, 0] >= 0) & (sp[:, 0] < cam.width)
-              & (sp[:, 1] >= 0) & (sp[:, 1] < cam.height))
-    stereo_ok = st.status & st_inb & all_mask
-    p3d_robot, tri_ok = triangulate_stereo(cam, all_uv, sp, min_depth,
-                                           max_depth)
-    cur_ok = stereo_ok & tri_ok
-    p_safe = torch.where(cur_ok[:, None], p3d_robot,
-                         torch.zeros_like(p3d_robot))
-    p_img_z = torch.where(cur_ok, mat_apply(cam.t_ir, p_safe)[:, 2],
-                          torch.zeros_like(sp[:, 0]))
+        if flow_back:
+            st = lk_track_bidirectional_pyr(left_pyr, right_pyr, all_uv,
+                                            all_uv, all_mask, lk_params,
+                                            fb_threshold=0.5)
+        else:
+            st = lk_track_pyr(left_pyr, right_pyr, all_uv, all_uv, all_mask,
+                              lk_params)
+        sp = st.points
+        st_inb = ((sp[:, 0] >= 0) & (sp[:, 0] < cam.width)
+                  & (sp[:, 1] >= 0) & (sp[:, 1] < cam.height))
+        stereo_ok = st.status & st_inb & all_mask
+        p3d_robot, tri_ok = triangulate_stereo(cam, all_uv, sp, min_depth,
+                                               max_depth)
+        cur_ok = stereo_ok & tri_ok
+        p_safe = torch.where(cur_ok[:, None], p3d_robot,
+                             torch.zeros_like(p3d_robot))
+        p_img_z = torch.where(cur_ok, mat_apply(cam.t_ir, p_safe)[:, 2],
+                              torch.zeros_like(sp[:, 0]))
 
     trk_ok = _scatter_rows(Fcap, comp_idx, cur_ok[:M])
     trk_uvr = _scatter_rows(Fcap, comp_idx, sp[:M])
