@@ -65,18 +65,18 @@ Phases (each prints its lines; any failure exits non-zero without the final
                 a frame at strategies 0 and 3 (profiler);
   8. mapping  — configs/sim_mapping.yaml's visfs block verbatim
                 (SensorStrategy 3 with CLAHE, NumRangeDataLimit 60,
-                MaxLaserRange 30) over phase s3's 120-frame sequence and
-                feed, with phase s3's gates;
+                MaxLaserRange 30) over the first 80 frames of phase s3's
+                sequence and feed, with phase s3's gates;
   9. loc_cull — configs/sim_localization.yaml's visfs block verbatim
                 (FlowBack off, 200 features) with Tracker/
                 CullByFundationMatrix and FundationPixelError 2.0 over the
-                main loop's first 120 frames: ATE <= 0.15 m, 0 lost,
+                main loop's first 80 frames: ATE <= 0.15 m, 0 lost,
                 exactly 2 one-way launches of K1's pyramid entry a frame
                 and 0 of every other entry, 0 host syncs (the cull's
                 sync-free eigensolvers); the features the cull rejects
                 each frame printed;
  10. rgbd     — the bench parameters with SensorStrategy 1, fed the left
-                images and the ray-cast depth of the main loop's first 120
+                images and the ray-cast depth of the main loop's first 80
                 frames: ATE <= 0.15 m, 0 lost, exactly 1 (bidirectional)
                 launch of K1's pyramid entry a frame (the temporal track;
                 depth replaces the stereo track) and 0 of every other
@@ -116,7 +116,26 @@ Phases (each prints its lines; any failure exits non-zero without the final
                 tests/test_fundamental.py's outlier scene and key (seed 42,
                 20 gross outliers of 120, key 0, threshold 1.5, 64
                 hypotheses): identical inlier masks, every gross outlier
-                rejected.
+                rejected;
+ 13. backend  — the mapping back-end: MultiRobotMapping with two robots
+                (bench parameters, one System each, K1) over a 240-frame
+                640x480 textured square loop (seed 11, two laps; robot 1
+                drives the second lap from its true start pose),
+                close_loops(radius 2.5, min_gap 8, min_inliers 10) and
+                optimize(10 steps, 60 CG iterations): each robot's VO ATE
+                <= 0.15 m and 0 lost, exactly 2 launches of K1's pyramid
+                entry a frame and 0 of every other entry, >= 3 keyframes a
+                robot, >= 1 cross-robot closure (the JAX package finds 9
+                here), 0 host syncs in one verify_loop call and in one
+                pose-graph solve, chi2 finite and lower after the solve,
+                the keyframe error after it within 0.15 m; every decided
+                pair's verify_loop on "cpu" from the same snapshots and
+                keys (ok identical, inliers within 1, rel within 1e-3 m
+                and 1e-3 rad) and the solve on "cpu" (poses within 1e-4 m
+                and 1e-4 rad); keyframes, candidates, closures, chi2 and
+                the keyframe error before and after, the times and kernels
+                (profiler) of close_loops, one verify_loop and optimize
+                printed.
 Each phase's seconds are printed, and the profiler traces each kernel row
 took (a trace may come back without its device records).  The kernels JSON
 line, the nvidia-smi line and the final {"ok": true, "device": ...} line
@@ -181,7 +200,9 @@ XCORR = dict(backend="jnp", iter_mode="xcorr")
 CULL = {"Tracker/CullByFundationMatrix": True,
         "Tracker/FundationPixelError": 2.0}  # tests/test_fundamental.py:80
 XCORR_FRAMES = 120  # phase xcorr's depth (the main loop's first frames)
-MODE_FRAMES = 120  # phases mapping, loc_cull and rgbd
+# phases mapping, loc_cull and rgbd: 80 since phase backend joined (with
+# them at 120 the whole script took 865 s of its 1,200 s on an H100)
+MODE_FRAMES = 80
 CLAHE_BOUND = 1e-3  # levels, clahe on "cuda" against "cpu"
 # phase small, strategy 5: the one-ulp nudged "cpu" steps tried on a frame
 # whose lost flags differ
@@ -1391,6 +1412,286 @@ def phase_cull():
         fail(f"cull: {int(mask[gt_out].sum())} gross outliers kept")
 
 
+# Phase backend: tests/test_multi_robot.py:112-180's two-robot session at
+# the bench's width and parameters.  BACKEND_FRAMES is 240 where the
+# reference test has 160: at 640x480 its corners turn 0.18 rad a frame and
+# the JAX package's own VO loses 7 frames a robot there (reference_backend.py
+# --frames 160); at 240 (0.12 rad, the bench loop's corner rate) it tracks.
+BACKEND_FRAMES = 240
+BACKEND_RENDER = dict(n_frames=BACKEND_FRAMES, width=WIDTH, height=HEIGHT,
+                      motion="square", seed=11, loops=2.0,
+                      room=(-3.0, 13.0, -6.0, 6.0))
+BACKEND_SESSION = dict(max_nodes=128, max_edges=512, snapshot_kp=48)
+BACKEND_LOOPS = dict(radius=2.5, min_gap=8, min_inliers=10)
+BACKEND_SOLVE = dict(iterations=10, cg_iters=60)
+# The JAX package at this point finds 9 cross-robot closures (of 16
+# candidates; reference_backend.py, CPU): the port must find at least one.
+REFERENCE_CROSS_EDGES = 9
+# card against CPU: verify_loop's rel, optimize_graph's poses
+VERIFY_REL_BOUND = 1e-3
+GRAPH_POSE_BOUND = 1e-4
+
+
+def device_kernels(fn):
+    """(kernels, their device ms) of one call of fn under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA]
+    return len(us), sum(us) / 1e3
+
+
+def sync_probe(fn):
+    """(fn(), the host syncs it made, its device ms by CUDA events, its
+    wall ms to the device's end): the syncs caught as warnings under
+    torch.cuda.set_sync_debug_mode("warn")."""
+    import torch
+
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            h0 = time.perf_counter()
+            e0.record()
+            out = fn()
+            e1.record()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - h0) * 1e3
+    syncs = [str(w.message) for w in caught
+             if "called a synchronizing" in str(w.message)]
+    return out, syncs, e0.elapsed_time(e1), wall
+
+
+def keyframe_error(poses, graph, seq):
+    """Planar error (m) of each keyframe against the ground truth at its
+    stamp (tests/test_multi_robot.py:160-172)."""
+    n = len(poses)
+    stamps = graph.stamp[:n].cpu().numpy()
+    idx = np.clip(np.searchsorted(seq.stamps, stamps - 1e-6), 0,
+                  len(seq.stamps) - 1)
+    return np.linalg.norm(poses[:, :2, 3] - seq.poses[idx][:, :2, 3],
+                          axis=-1)
+
+
+def rel_gap(a, b):
+    """(max |dt| m, rotation angle rad) between two 4x4 transforms; the
+    angle from |Ra - Rb|_F = 2 sqrt(2) sin(angle / 2), which holds its
+    precision near 0 where the trace's arccos does not."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    d = np.linalg.norm(a[:3, :3] - b[:3, :3]) / (2.0 * np.sqrt(2.0))
+    return (float(np.abs(a[:3, 3] - b[:3, 3]).max()),
+            float(2.0 * np.arcsin(min(d, 1.0))))
+
+
+def phase_backend(cached_textured_sequence, cache_dir, ate_rmse, expect):
+    """The mapping back-end on the card: MultiRobotMapping (two robots, one
+    System each, K1 on every frame) -> close_loops -> optimize, with
+    verify_loop and optimize_graph also run on "cpu" from the same inputs.
+    expect: {(kernel module, launch counter): launches per frame} over the
+    VO loop, every count set to 0 just before it and read just after."""
+    import torch
+
+    from visfs_tpu_torch.core.camera import make_stereo_camera
+    from visfs_tpu_torch.core.lie import se3_matrix
+    from visfs_tpu_torch.slam import mapping
+    from visfs_tpu_torch.slam.multi_robot import MultiRobotMapping
+
+    seq = cached_textured_sequence(cache_dir=cache_dir, device="cuda",
+                                   **BACKEND_RENDER)
+    lap = BACKEND_FRAMES // 2
+    lefts = [torch.as_tensor(f, device="cuda") for f in seq.left]
+    rights = [torch.as_tensor(f, device="cuda") for f in seq.right]
+    cam = seq.camera
+    session = MultiRobotMapping(
+        bench_params(WIDTH), 2, start_poses=[np.eye(4, dtype=np.float32),
+                                             seq.poses[lap]],
+        device="cuda", **BACKEND_SESSION)
+    session.init(float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy),
+                 float(cam.baseline), width=cam.width, height=cam.height)
+    vo = {0: [], 1: []}  # the outputs the harvest pops, per robot
+    for r, s in enumerate(session.systems):
+        def recorded(pop=s.output_odometry_info, r=r):
+            out = pop()
+            if out is not None:
+                vo[r].append(out)
+            return out
+        s.output_odometry_info = recorded
+    torch.cuda.synchronize()
+    for mod, counter in expect:
+        setattr(mod, counter, 0)
+    t0 = time.perf_counter()
+    for k in range(BACKEND_FRAMES):
+        session.input_primary_sensor_data(0 if k < lap else 1,
+                                          float(seq.stamps[k]), lefts[k],
+                                          rights[k])
+    session.finish()
+    torch.cuda.synchronize()
+    vo_s = time.perf_counter() - t0
+    launches = {key: getattr(*key) for key in expect}
+
+    robots = []
+    for r, frames in ((0, range(0, lap)), (1, range(lap, BACKEND_FRAMES))):
+        outs = vo[r][1:]  # after the bootstrap frame
+        est = np.stack([session.start_poses[r] @ o.pose for o in outs])
+        robots.append((ate_rmse(est, seq.poses[list(frames)[1:]]),
+                       int(sum(bool(o.lost) for o in outs)), len(outs)))
+    counts = session.keyframe_counts()
+    backend = session.backend
+    print(f"backend: VO {BACKEND_FRAMES} frames in {vo_s:.2f} s "
+          f"({BACKEND_FRAMES / vo_s:.2f} fps, harvest and snapshots "
+          f"included); robot ATE / lost: "
+          + ", ".join(f"{a:.4f} m / {lost} of {n}" for a, lost, n in robots)
+          + f"; keyframes {counts}; "
+          + ", ".join(f"{mod.__name__.rsplit('.', 1)[-1]}.{counter} {c}"
+                      for (mod, counter), c in launches.items()), flush=True)
+    for r, (ate, lost, _) in enumerate(robots):
+        if not ate <= ATE_GATE:
+            fail(f"backend: robot {r} ATE {ate:.4f} m > {ATE_GATE}")
+        if lost:
+            fail(f"backend: robot {r} lost {lost} frames")
+    for (mod, counter), per_frame in expect.items():
+        if launches[mod, counter] != per_frame * BACKEND_FRAMES:
+            fail(f"backend: {mod.__name__}.{counter} is "
+                 f"{launches[mod, counter]}, expected "
+                 f"{per_frame * BACKEND_FRAMES}")
+    if min(counts) < 3:
+        fail(f"backend: keyframes {counts}, fewer than 3 a robot")
+
+    # close_loops, each verify_loop call recorded for the cpu comparison
+    node_of = {id(snap): node for node, snap in backend.snapshots.items()}
+    calls, verify = [], mapping.verify_loop
+
+    def recorded_verify(si, sj, cam_, key, **kw):
+        out = verify(si, sj, cam_, key, **kw)
+        calls.append(((node_of[id(si)], node_of[id(sj)]), si, sj, key, kw,
+                      out))
+        return out
+
+    candidates = len(backend.loop_candidates(BACKEND_LOOPS["radius"],
+                                             BACKEND_LOOPS["min_gap"]))
+    mapping.verify_loop = recorded_verify
+    try:
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        e0.record()
+        closures = session.close_loops(**BACKEND_LOOPS)
+        e1.record()
+        torch.cuda.synchronize()
+        close_ms = ((time.perf_counter() - t0) * 1e3, e0.elapsed_time(e1))
+    finally:
+        mapping.verify_loop = verify
+    cross = session.cross_robot_edges()
+    decided = [(pair, bool(out[1]), int(out[2]))
+               for pair, _, _, _, _, out in calls]
+    print(f"backend: close_loops {close_ms[0]:.1f} ms wall, "
+          f"{close_ms[1]:.1f} ms device span; {candidates} candidates, "
+          f"{len(calls)} verified, {closures} closures, {cross} "
+          f"cross-robot; decided (pair, ok, inliers): {decided}", flush=True)
+    if REFERENCE_CROSS_EDGES and cross < 1:
+        fail(f"backend: no cross-robot closure (the JAX package finds "
+             f"{REFERENCE_CROSS_EDGES} here)")
+    if not calls:
+        fail("backend: close_loops verified no candidate")
+
+    # one verify_loop call: host syncs, device time, kernels
+    _, si, sj, key, kw, first = calls[0]
+    again, syncs, v_dev, v_wall = sync_probe(
+        lambda: verify(si, sj, session.camera, key, **kw))
+    v_kernels, v_kms = device_kernels(
+        lambda: verify(si, sj, session.camera, key, **kw))
+    same = all(torch.equal(a, b) for a, b in zip(again, first))
+    print(f"backend: one verify_loop {v_wall:.1f} ms wall, {v_dev:.2f} ms "
+          f"device span, {v_kernels} kernels ({v_kms:.2f} ms of kernel "
+          f"time, profiler), host syncs {len(syncs)}; the repeat "
+          f"{'equals' if same else 'differs from'} close_loops' call",
+          flush=True)
+    for msg in sorted(set(syncs))[:5]:
+        print(f"backend: verify_loop sync: {msg[:200]}", flush=True)
+    if syncs:
+        fail(f"backend: {len(syncs)} host syncs in one verify_loop call")
+
+    # card against cpu: every decided pair from the same snapshots and keys
+    cpu_cam = make_stereo_camera(float(cam.fx), float(cam.fy),
+                                 float(cam.cx), float(cam.cy),
+                                 float(cam.baseline), width=cam.width,
+                                 height=cam.height, device="cpu")
+    worst = [0.0, 0.0, 0]
+    for pair, si, sj, key, kw, (rel, ok, n) in calls:
+        rel_c, ok_c, n_c = verify(
+            mapping.KeyframeSnapshot(*(x.cpu() for x in si)),
+            mapping.KeyframeSnapshot(*(x.cpu() for x in sj)), cpu_cam,
+            key.cpu(), **kw)
+        dt, dang = rel_gap(rel.cpu().numpy(), rel_c.numpy())
+        dn = abs(int(n) - int(n_c))
+        if bool(ok):
+            worst = [max(worst[0], dt), max(worst[1], dang), worst[2]]
+        worst[2] = max(worst[2], dn)
+        if bool(ok) != bool(ok_c) or dn > 1 or (bool(ok) and (
+                dt > VERIFY_REL_BOUND or dang > VERIFY_REL_BOUND)):
+            fail(f"backend: verify_loop {pair} cuda vs cpu: ok "
+                 f"{bool(ok)}/{bool(ok_c)}, inliers {int(n)}/{int(n_c)}, "
+                 f"rel {dt:.3g} m, {dang:.3g} rad")
+    print(f"backend: verify_loop cuda vs cpu on {len(calls)} pairs: ok "
+          f"identical, inliers within {worst[2]}, accepted rel within "
+          f"{worst[0]:.3g} m and {worst[1]:.3g} rad", flush=True)
+
+    # optimize: the error before and after, chi2, syncs in one solve, the
+    # same solve on cpu
+    g0 = backend.graph
+    err0 = keyframe_error(session.poses(), g0, seq)
+    chi2_0 = float(mapping.optimize_graph(g0, None, iterations=1,
+                                          cg_iters=1)[1])
+    (g_probe, chi2_probe), syncs, o_dev, o_wall = sync_probe(
+        lambda: mapping.optimize_graph(g0, None, **BACKEND_SOLVE))
+    o_kernels, o_kms = device_kernels(
+        lambda: mapping.optimize_graph(g0, None, **BACKEND_SOLVE))
+    t0 = time.perf_counter()
+    chi2 = session.optimize(**BACKEND_SOLVE)
+    solve_wall = (time.perf_counter() - t0) * 1e3
+    err1 = keyframe_error(session.poses(), backend.graph, seq)
+    g_cpu, _ = mapping.optimize_graph(
+        mapping.KeyframeGraph(*(x.cpu() for x in g0)), None, **BACKEND_SOLVE)
+    n = int(g0.n_nodes)
+    card = se3_matrix(g_probe.pose_q[:n], g_probe.pose_t[:n]).cpu()
+    host = se3_matrix(g_cpu.pose_q[:n], g_cpu.pose_t[:n])
+    gaps = [rel_gap(a.numpy(), b.numpy()) for a, b in zip(card, host)]
+    g_dt, g_dang = max(g[0] for g in gaps), max(g[1] for g in gaps)
+    held = (err1.max() <= 1.05 * err0.max() + 1e-3
+            and err1.mean() <= 1.02 * err0.mean() + 1e-3)
+    print(f"backend: optimize {solve_wall:.1f} ms wall (one solve: "
+          f"{o_wall:.1f} ms wall, {o_dev:.2f} ms device span, {o_kernels} "
+          f"kernels, {o_kms:.2f} ms of kernel time, host syncs "
+          f"{len(syncs)}); chi2 {chi2_0:.6g} -> {chi2:.6g}; keyframe error "
+          f"max {err0.max():.4f} -> {err1.max():.4f} m, mean "
+          f"{err0.mean():.4f} -> {err1.mean():.4f} m (the reference test's "
+          f"bounds {'held' if held else 'not held'}; the JAX package here: "
+          f"not held, reference_backend.py); optimize_graph cuda vs cpu "
+          f"within {g_dt:.3g} m and {g_dang:.3g} rad", flush=True)
+    for msg in sorted(set(syncs))[:5]:
+        print(f"backend: optimize sync: {msg[:200]}", flush=True)
+    if syncs:
+        fail(f"backend: {len(syncs)} host syncs in one pose-graph solve")
+    if not (np.isfinite(chi2) and chi2 < chi2_0):
+        fail(f"backend: chi2 {chi2_0:.6g} -> {chi2:.6g}")
+    if not np.all(np.isfinite(err1)) or not err1.max() <= ATE_GATE:
+        fail(f"backend: keyframe error after optimize {err1.max():.4f} m "
+             f"> {ATE_GATE}")
+    if g_dt > GRAPH_POSE_BOUND or g_dang > GRAPH_POSE_BOUND:
+        fail(f"backend: optimize_graph cuda vs cpu {g_dt:.3g} m, "
+             f"{g_dang:.3g} rad")
+    return launches
+
+
 def fusion_params(params, strategy):
     return dict(params, **{"System/SensorStrategy": strategy,
                            "LocalMap/NumRangeDataLimit": 3})
@@ -1705,6 +2006,8 @@ def main():
                 cache_dir)
     timed_phase("clahe", phase_clahe, seq)
     timed_phase("cull", phase_cull)
+    timed_phase("backend", phase_backend, cached_textured_sequence,
+                cache_dir, ate_rmse, on_k1)
     print("phase times (s): " + json.dumps(times), flush=True)
     tries = [n for _, n in TRACES]
     print(f"profiler traces: {len(TRACES)} kernel rows, traces per row "

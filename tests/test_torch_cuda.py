@@ -268,3 +268,128 @@ def test_strategy3_step_on_cuda_matches_cpu():
     known = int(((a.cells.cpu() != 0) | (b.cells != 0)).sum())
     assert known > 0
     assert int((a.cells.cpu() != b.cells).sum()) <= 1e-3 * known
+
+
+class _NoHostSync:
+    """A block that raises on any host sync on the card."""
+
+    def __enter__(self):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode(0)
+        return False
+
+
+def test_kabsch_on_cuda_has_no_host_sync():
+    """48 minimal 3-point Kabsch solves and a 24-point one on "cuda" with
+    no host sync, within 1e-5 of "cpu"."""
+    _require_gpu()
+    from visfs_tpu_torch.ops.rigid import kabsch
+
+    rng = np.random.default_rng(0)
+    p_b = rng.uniform(-2, 2, (24, 3)).astype(np.float32)
+    a = rng.normal(size=3)
+    c, s = np.cos(a[0]), np.sin(a[0])
+    R = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
+    p_a = (p_b @ R.T + a).astype(np.float32)
+    w = np.zeros((49, 24), np.float32)
+    for k in range(48):
+        w[k, rng.choice(24, 3, replace=False)] = 1.0
+    w[48] = 1.0
+    args = [torch.from_numpy(x) for x in (p_a, p_b, w)]
+    on_card = [x.cuda() for x in args]  # a copy from pageable memory syncs
+    with _NoHostSync():
+        R_c, t_c = kabsch(*on_card)
+    R_p, t_p = kabsch(*args)
+    np.testing.assert_allclose(R_c.cpu().numpy(), R_p.numpy(), atol=1e-5)
+    np.testing.assert_allclose(t_c.cpu().numpy(), t_p.numpy(), atol=1e-5)
+    np.testing.assert_allclose(R_c[48].cpu().numpy(), R, atol=1e-4)
+
+
+def _circle_graph(n=32, seed=0):
+    """tests/test_distributed.py's build_pose_graph in the port's own
+    terms: a circle of camera poses with odometry edges, three loop
+    closures, every pose but the anchor perturbed."""
+    from visfs_tpu_torch.core import lie
+    from visfs_tpu_torch.parallel.pose_graph import PoseGraph
+
+    ang = torch.tensor(2 * np.pi * np.arange(n) / n, dtype=torch.float32)
+    zero = torch.zeros_like(ang)
+    q = lie.quat_positify(torch.stack([torch.cos(ang / 2), zero, zero,
+                                       torch.sin(ang / 2)], -1))
+    t = torch.stack([3 * torch.cos(ang), 3 * torch.sin(ang), zero], -1)
+    pairs = [(i, i + 1) for i in range(n - 1)] + [
+        (0, n - 1), (0, n // 2), (n // 4, 3 * n // 4)]
+    ei = torch.tensor([p[0] for p in pairs])
+    ej = torch.tensor([p[1] for p in pairs])
+    mq, mt = lie.se3_mul((q[ei], t[ei]), lie.se3_inv((q[ej], t[ej])))
+    noise = torch.from_numpy(np.random.default_rng(seed).normal(
+        size=(n, 6)).astype(np.float32) * 0.05)
+    noise[0] = 0
+    pq, pt = lie.pose_update(q, t, noise)
+    return PoseGraph(pose_q=pq, pose_t=pt,
+                     pose_fixed=torch.arange(n) == 0,
+                     edge_i=ei.int(), edge_j=ej.int(), edge_q=mq, edge_t=mt,
+                     edge_info=torch.full((len(pairs),), 100.0),
+                     edge_mask=torch.ones(len(pairs), dtype=torch.bool))
+
+
+def test_pose_graph_optimize_on_cuda_has_no_host_sync():
+    """pose_graph.optimize (10 Gauss-Newton steps of 60 CG iterations) on
+    "cuda" with no host sync, within 1e-4 of "cpu"."""
+    _require_gpu()
+    from visfs_tpu_torch.parallel import pose_graph
+
+    g = _circle_graph()
+    on_card = pose_graph.PoseGraph(*(x.cuda() for x in g))
+    with _NoHostSync():
+        q_c, t_c, chi2_c = pose_graph.optimize(on_card, iterations=10,
+                                               cg_iters=60)
+    q_p, t_p, chi2_p = pose_graph.optimize(g, iterations=10, cg_iters=60)
+    np.testing.assert_allclose(q_c.cpu().numpy(), q_p.numpy(), atol=1e-4)
+    np.testing.assert_allclose(t_c.cpu().numpy(), t_p.numpy(), atol=1e-4)
+    assert torch.equal(t_c[0].cpu(), g.pose_t[0])
+    assert float(chi2_c) < 1e-3
+
+
+def test_verify_loop_on_cuda_has_no_host_sync(seq):
+    """verify_loop on two keyframe snapshots of the System on "cuda" with no
+    host sync; on "cpu" from the same snapshots and key: identical ok,
+    n_inliers within 1, rel within 1e-3 m and 1e-3 rad."""
+    _require_gpu()
+    from visfs_tpu_torch.core import prng
+    from visfs_tpu_torch.core.camera import make_stereo_camera
+    from visfs_tpu_torch.slam.mapping import KeyframeSnapshot, verify_loop
+
+    params = {"Tracker/MaxFeatures": 60, "Tracker/MinDistance": 12,
+              "Tracker/QualityLevel": 0.05, "Optimizer/Iterations": 20,
+              "Estimator/Force3DoF": True}
+    cam = seq.camera
+    s = System(params, device="cuda")
+    s.init(float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy),
+           float(cam.baseline), width=cam.width, height=cam.height)
+    snaps = []
+    for k in range(4):
+        s.input_primary_sensor_data(float(seq.stamps[k]), seq.left[k],
+                                    seq.right[k])
+        snaps.append(s.keyframe_snapshot(max_kp=48))
+    cpu_cam = make_stereo_camera(float(cam.fx), float(cam.fy),
+                                 float(cam.cx), float(cam.cy),
+                                 float(cam.baseline), width=cam.width,
+                                 height=cam.height, device="cpu")
+    key = prng.PRNGKey(0, "cuda")
+    with _NoHostSync():
+        rel_c, ok_c, n_c = verify_loop(snaps[1], snaps[3], s.camera, key)
+    rel_p, ok_p, n_p = verify_loop(
+        KeyframeSnapshot(*(x.cpu() for x in snaps[1])),
+        KeyframeSnapshot(*(x.cpu() for x in snaps[3])), cpu_cam,
+        key.cpu())
+    assert bool(ok_c) == bool(ok_p)
+    assert bool(ok_c) and abs(int(n_c) - int(n_p)) <= 1
+    rel_c, rel_p = rel_c.cpu().double().numpy(), rel_p.double().numpy()
+    assert np.abs(rel_c[:3, 3] - rel_p[:3, 3]).max() <= 1e-3
+    # |Ra - Rb|_F = 2 sqrt(2) sin(angle / 2)
+    d = np.linalg.norm(rel_c[:3, :3] - rel_p[:3, :3]) / (2 * np.sqrt(2))
+    assert 2 * np.arcsin(min(d, 1.0)) <= 1e-3

@@ -96,6 +96,34 @@ def edge_pad(img, pad: int):
     return img[rows[:, None], cols[None, :]]
 
 
+def extract_patch_bilinear(img, center, size: int):
+    """Bilinearly interpolated size x size patches at ``center`` [..., 2]
+    (x, y): [..., size, size] (row = y, col = x), one per centre.
+
+    A patch samples center + (dx, dy) for dx, dy from -(size//2) to
+    size - 1 - size//2.  The weights come from the unclamped corner; the
+    integer corner is clamped to [0, w - size - 1] (and the rows alike), so
+    a patch near the border reads the border region with the same weights,
+    as the reference's dynamic_slice does."""
+    h, w = img.shape
+    half = size // 2
+    x0 = center[..., 0] - half
+    y0 = center[..., 1] - half
+    fx0 = torch.floor(x0)
+    fy0 = torch.floor(y0)
+    fx = (x0 - fx0)[..., None, None]
+    fy = (y0 - fy0)[..., None, None]
+    ix = torch.clamp(fx0.long(), 0, w - size - 1)
+    iy = torch.clamp(fy0.long(), 0, h - size - 1)
+    taps = torch.arange(size + 1, device=img.device)
+    region = img[(iy[..., None] + taps)[..., :, None],
+                 (ix[..., None] + taps)[..., None, :]]
+    return ((1 - fx) * (1 - fy) * region[..., :-1, :-1]
+            + fx * (1 - fy) * region[..., :-1, 1:]
+            + (1 - fx) * fy * region[..., 1:, :-1]
+            + fx * fy * region[..., 1:, 1:])
+
+
 def in_bounds(pts, width, height, margin=0.0):
     """[..., 2] (x, y) points inside the image with a margin."""
     x, y = pts[..., 0], pts[..., 1]

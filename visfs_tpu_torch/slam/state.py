@@ -6,7 +6,8 @@ counters, bool masks, float32 values; the PRNG key is two uint32 words held
 in int64; the occupancy cells and update tables' uint16 values in int32).
 ``state_from_numpy`` / ``state_to_numpy`` convert to and from a reference
 ``VOState`` fetched to numpy, laser state included, so both engines can be
-handed the same mid-sequence state.
+handed the same mid-sequence state; ``graph_*`` and ``snapshot_*`` do the
+same for the mapping back-end's KeyframeGraph and KeyframeSnapshot.
 """
 
 from __future__ import annotations
@@ -136,6 +137,33 @@ class FrameOutput(NamedTuple):
     time_estimation: float = 0.0
     local_bundle_time: float = 0.0
     time_total: float = 0.0
+
+
+class KeyframeGraph(NamedTuple):
+    """The mapping back-end's fixed-capacity keyframe pose graph."""
+
+    pose_q: torch.Tensor  # [N, 4] Twr rotations
+    pose_t: torch.Tensor  # [N, 3]
+    stamp: torch.Tensor  # [N]
+    robot: torch.Tensor  # [N] int32 owning robot (multi-robot sessions)
+    valid: torch.Tensor  # [N] bool
+    n_nodes: torch.Tensor  # int32
+    edge_i: torch.Tensor  # [E] int32
+    edge_j: torch.Tensor  # [E] int32
+    edge_q: torch.Tensor  # [E, 4] measured T_ri_rj rotation
+    edge_t: torch.Tensor  # [E, 3]
+    edge_info: torch.Tensor  # [E]
+    edge_valid: torch.Tensor  # [E] bool
+    n_edges: torch.Tensor  # int32
+
+
+class KeyframeSnapshot(NamedTuple):
+    """Per-keyframe appearance record for loop verification."""
+
+    uv: torch.Tensor  # [M, 2] left-image pixels
+    p_robot: torch.Tensor  # [M, 3] robot-frame 3D points
+    patch: torch.Tensor  # [M, S*S*scales] zero-mean unit-norm patches
+    valid: torch.Tensor  # [M] bool
 
 
 def init_feature_table(capacity: int, window: int, device) -> FeatureTable:
@@ -329,3 +357,25 @@ def state_to_numpy(s: VOState) -> VOState:
         laser=_laser_to_numpy(s.laser),
         prev_pyr=tuple(tuple(_to_numpy(p) for p in lv) for lv in s.prev_pyr),
     )
+
+
+def graph_from_numpy(g, device) -> KeyframeGraph:
+    """Port KeyframeGraph (on ``device``) from a reference KeyframeGraph
+    with numpy leaves."""
+    return _convert(KeyframeGraph, g, lambda x: _to_torch(x, device))
+
+
+def graph_to_numpy(g: KeyframeGraph) -> KeyframeGraph:
+    """The same graph with numpy leaves in the reference's dtypes."""
+    return _convert(KeyframeGraph, g, _to_numpy)
+
+
+def snapshot_from_numpy(s, device) -> KeyframeSnapshot:
+    """Port KeyframeSnapshot (on ``device``) from a reference snapshot with
+    numpy leaves."""
+    return _convert(KeyframeSnapshot, s, lambda x: _to_torch(x, device))
+
+
+def snapshot_to_numpy(s: KeyframeSnapshot) -> KeyframeSnapshot:
+    """The same snapshot with numpy leaves."""
+    return _convert(KeyframeSnapshot, s, _to_numpy)

@@ -42,6 +42,7 @@ from ..utils.timer import StageTimer
 from . import extrapolator as extr
 from .estimator import (EstimatorSettings, estimator_finalize,
                         estimator_prepare, marginalize)
+from .mapping import snapshot_features
 from .state import FrameOutput, VOState, init_laser_state, init_state
 from .tracker import carried_pyramid, tracker_step
 
@@ -414,6 +415,17 @@ class System:
         if self._results:
             return _outputs_to_numpy([self._results.popleft()])[0]
         return None
+
+    def keyframe_snapshot(self, max_kp: int = 64, patch_size: int = 8,
+                          scales: tuple = (1, 3, 6)):
+        """Appearance snapshot of the latest processed frame's features for
+        loop verification (slam/mapping.py ``verify_loop``), on the
+        System's device."""
+        if self.state is None:
+            raise RuntimeError("call init() first")
+        return snapshot_features(self.state.features, self.state.prev_left,
+                                 self.camera, max_kp=max_kp,
+                                 patch_size=patch_size, scales=scales)
 
     def drain_outputs(self):
         """Fetch every queued frame result."""

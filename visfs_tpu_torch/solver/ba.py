@@ -9,6 +9,14 @@ on 3x3 blocks (Schur complement), the [6P, 6P] pose system is solved by
 Cholesky.  Two passes of iterations/2 LM steps; between them, edges with
 chi2 > robustKernelDelta are demoted and reported as outliers.  Every
 branch on data is a ``torch.where``, so the solver never syncs the host.
+
+``group``: a ``torch.distributed`` process group over which the landmark
+axis is split (parallel/distributed_ba.py), as the reference threads an
+``axis_name``.  The landmark sums of the camera system, of the Schur
+terms and of the stereo chi2 are then all-reduced; the link and laser
+terms, the pose solve, the LM decisions and the demotion thresholds run
+replicated on the summed values.  With None the path is the single-process
+solver, unchanged.
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..parallel.mesh import psum
 from .factors import (StereoIntrinsics, apply_tangent, huber_weight, inv3x3,
                       pose_link_jacobians, pose_link_residual,
                       stereo_jacobians, stereo_residual)
@@ -110,7 +119,7 @@ def _laser_terms(problem: BAProblem, pose_q, pose_t):
 
 
 def _robust_chi2_total(problem: BAProblem, lm_pos, pose_q, pose_t,
-                       active_mask, settings: BASettings):
+                       active_mask, settings: BASettings, group=None):
     """activeRobustChi2: huberized stereo chi2 + link chi2 (+ laser)."""
     _, _, chi2 = _stereo_terms(problem, lm_pos, pose_q, pose_t, active_mask,
                                settings)
@@ -121,7 +130,7 @@ def _robust_chi2_total(problem: BAProblem, lm_pos, pose_q, pose_t,
             2.0 * d * torch.sqrt(torch.clamp(chi2, min=1e-12)) - d * d, chi2)
     else:
         rho = chi2
-    total = torch.sum(rho * active_mask)
+    total = psum(torch.sum(rho * active_mask), group)
     r_link = pose_link_residual(*_link_terms(problem, pose_q, pose_t))
     link_chi2 = (1.0 / settings.odometry_covariance) * torch.sum(
         r_link * r_link, dim=-1)
@@ -133,7 +142,7 @@ def _robust_chi2_total(problem: BAProblem, lm_pos, pose_q, pose_t,
 
 
 def _gn_normal_equations(problem: BAProblem, lm_pos, pose_q, pose_t,
-                         active_mask, settings: BASettings):
+                         active_mask, settings: BASettings, group=None):
     """(H_pp [6P,6P], g_p [6P], V [L,3,3], g_l [L,3], W [L,3,6P],
     lm_free [L])."""
     P = pose_q.shape[0]
@@ -145,7 +154,7 @@ def _gn_normal_equations(problem: BAProblem, lm_pos, pose_q, pose_t,
     wJp = w[..., None, None] * Jp
     wJl = w[..., None, None] * Jl
     U = torch.einsum("lpki,lpkj->pij", wJp, Jp)  # [P,6,6]
-    g_p = -torch.einsum("lpki,lpk->pi", wJp, r).reshape(6 * P)
+    g_p = psum(-torch.einsum("lpki,lpk->pi", wJp, r).reshape(6 * P), group)
     V = torch.einsum("lpki,lpkj->lij", wJl, Jl)  # [L,3,3]
     g_l = -torch.einsum("lpki,lpk->li", wJl, r)  # [L,3]
     W = torch.einsum("lpki,lpkj->lipj", wJl, Jp).reshape(L, 3, 6 * P)
@@ -154,6 +163,9 @@ def _gn_normal_equations(problem: BAProblem, lm_pos, pose_q, pose_t,
     H = torch.zeros((P, 6, P, 6), dtype=pose_t.dtype, device=pose_t.device)
     ar = torch.arange(P, device=pose_t.device)
     H[ar, :, ar, :] = U
+    # the landmark sums over ranks; the link and laser terms below are
+    # replicated and added once
+    psum(H, group)
     links = _link_terms(problem, pose_q, pose_t)
     r_link = pose_link_residual(*links)
     J1, J2 = pose_link_jacobians(*links)
@@ -184,7 +196,7 @@ def _gn_normal_equations(problem: BAProblem, lm_pos, pose_q, pose_t,
 
 
 def _solve_schur(H, g_p, V, g_l, W, lm_free, pose_free_mask, lam,
-                 use_lm: bool):
+                 use_lm: bool, group=None):
     """Schur-marginalize landmarks, solve poses, back-substitute."""
     P6 = H.shape[0]
     eye3 = torch.eye(3, dtype=H.dtype, device=H.device)
@@ -197,8 +209,8 @@ def _solve_schur(H, g_p, V, g_l, W, lm_free, pose_free_mask, lam,
     free = lm_free.to(H.dtype)
     V_inv = inv3x3(torch.where(lm_free[:, None, None], Vd, eye3))
     WtVi = torch.einsum("laj,lab->ljb", W, V_inv * free[:, None, None])
-    S = Hd - torch.einsum("ljb,lbk->jk", WtVi, W)
-    g_s = g_p - torch.einsum("ljb,lb->j", WtVi, g_l)
+    S = Hd - psum(torch.einsum("ljb,lbk->jk", WtVi, W), group)
+    g_s = g_p - psum(torch.einsum("ljb,lb->j", WtVi, g_l), group)
 
     m = pose_free_mask.to(H.dtype)
     S = S * m[:, None] * m[None, :] + torch.diag_embed(1.0 - m)
@@ -233,24 +245,24 @@ def _apply_updates(pose_q, pose_t, lm_pos, dx_p, dx_l, pose_fixed):
 
 
 def _optimize_pass(problem: BAProblem, pose_q, pose_t, lm_pos, active_mask,
-                   settings: BASettings, num_iters: int):
+                   settings: BASettings, num_iters: int, group=None):
     """``num_iters`` LM/GN iterations with a fixed active-edge mask."""
     pose_free = ~problem.pose_fixed & problem.pose_valid
     pose_free_mask = torch.repeat_interleave(pose_free, 6)
     use_lm = settings.use_levenberg
     chi2_cur = _robust_chi2_total(problem, lm_pos, pose_q, pose_t,
-                                  active_mask, settings)
+                                  active_mask, settings, group)
     lam = torch.full((), settings.init_lambda, dtype=pose_t.dtype,
                      device=pose_t.device)
     for _ in range(num_iters):
         H, g_p, V, g_l, W, lm_free = _gn_normal_equations(
-            problem, lm_pos, pose_q, pose_t, active_mask, settings)
+            problem, lm_pos, pose_q, pose_t, active_mask, settings, group)
         dx_p, dx_l = _solve_schur(H, g_p, V, g_l, W, lm_free, pose_free_mask,
-                                  lam, use_lm)
+                                  lam, use_lm, group)
         cand_q, cand_t, cand_lm = _apply_updates(pose_q, pose_t, lm_pos, dx_p,
                                                  dx_l, problem.pose_fixed)
         chi2_new = _robust_chi2_total(problem, cand_lm, cand_q, cand_t,
-                                      active_mask, settings)
+                                      active_mask, settings, group)
         # STRICT decrease; plain GN always steps.
         if use_lm:
             accept = torch.isfinite(chi2_new) & (chi2_new < chi2_cur)
@@ -264,30 +276,35 @@ def _optimize_pass(problem: BAProblem, pose_q, pose_t, lm_pos, active_mask,
     return pose_q, pose_t, lm_pos
 
 
-def local_optimize(problem: BAProblem, settings: BASettings) -> BAResult:
-    """Two-pass sliding-window BA (Optimizer::localOptimize equivalent)."""
+def local_optimize(problem: BAProblem, settings: BASettings,
+                   group=None) -> BAResult:
+    """Two-pass sliding-window BA (Optimizer::localOptimize equivalent);
+    ``group`` splits the landmark axis over ranks (module docstring)."""
     half = max(settings.iterations // 2, 1)
     base_mask = problem.obs_mask & problem.lm_valid[:, None] \
         & problem.pose_valid[None, :]
     active = base_mask.to(problem.pose_t.dtype)
 
     q1, t1, l1 = _optimize_pass(problem, problem.pose_q, problem.pose_t,
-                                problem.lm_pos, active, settings, half)
+                                problem.lm_pos, active, settings, half,
+                                group)
     _, _, chi2 = _stereo_terms(problem, l1, q1, t1, active, settings)
-    chi2_mid = _robust_chi2_total(problem, l1, q1, t1, active, settings)
+    chi2_mid = _robust_chi2_total(problem, l1, q1, t1, active, settings,
+                                  group)
     diverged1 = ~torch.isfinite(chi2_mid) | (chi2_mid > _MAX_CHI2)
 
     if settings.robust_delta > 0.0:
         outliers = base_mask & (chi2 > settings.robust_delta)
         active2 = (base_mask & ~outliers).to(active.dtype)
         q2, t2, l2 = _optimize_pass(problem, q1, t1, l1, active2, settings,
-                                    half)
+                                    half, group)
     else:
         outliers = torch.zeros_like(base_mask)
         active2 = active
         q2, t2, l2 = q1, t1, l1
 
-    chi2_end = _robust_chi2_total(problem, l2, q2, t2, active2, settings)
+    chi2_end = _robust_chi2_total(problem, l2, q2, t2, active2, settings,
+                                  group)
     diverged2 = ~torch.isfinite(chi2_end) | (chi2_end > _MAX_CHI2)
     ok = ~(diverged1 | diverged2)
     return BAResult(torch.where(ok, q2, problem.pose_q),
