@@ -22,7 +22,13 @@ Phases (each prints its lines; any failure exits non-zero without the final
                 a wrapper call and of the plain version, and the bound of
                 each launch; and the device time of one step (the
                 one-level entry at level 0 with eps = 0, run for 1 and for
-                30 steps);
+                30 steps); and with the fleet's stream axis: 8 streams
+                (bench.py phase 3's offsets, each its own frame pair) of
+                N = 120 and 240 in one launch, bidirectional: one launch
+                through the op under torch.func.vmap, bit-equal to 8
+                single launches and to the direct batched launch, the
+                plain version's gates per stream, device time beside one
+                stream's launch, the bound the sum of the streams' work;
   4. k2       — the xcorr loop kernel (K2) against its plain versions on
                 the same pair and points: its one-level entry on the maps
                 and scalars of the real jnp level setup, all four levels
@@ -34,7 +40,8 @@ Phases (each prints its lines; any failure exits non-zero without the final
                 pyramid entry with eps = 1e9 (one step a running level:
                 the setup-plus-maps share of the launch), and the time of
                 a grouped float32 conv2d computing the level-0 maps (a
-                yardstick of the map stage; the port never calls it);
+                yardstick of the map stage; the port never calls it); and
+                k1's 8-stream rows (gate 0.01 px);
   5. main     — the stereo VO main path: System(bench parameters,
                 device="cuda") over the 300-frame 640x480 textured square
                 loop rendered on the card (with its depth, for phase rgbd),
@@ -45,10 +52,23 @@ Phases (each prints its lines; any failure exits non-zero without the final
                 stage split; then (profile) frames 2-11 of a fresh System
                 with profile_stages=True, each step as four synced stages,
                 the medians of the time_* fields printed, not gated;
-  6. xcorr    — the loop's first 120 frames with lk_params backend="jnp",
+  6. xcorr    — the loop's first 80 frames with lk_params backend="jnp",
                 iter_mode="xcorr" (the jnp level in correlation form): the
                 same gates with 2 launches of K2's pyramid entry, 0 of its
                 one-level entry and 0 of either K1 entry per frame;
+  6b. fleet   — bench phase 3 (bench.py:160-187): FleetSystem(bench
+                parameters, 8 streams) on "cuda", 40 frames a stream from
+                offsets (k * 7) mod 260 of the main loop, frames 0-1 then
+                a timed loop over 2-39: exactly 2 K1 pyramid launches a
+                fleet frame for all 8 streams and 0 of every other entry,
+                0 host syncs, each stream's ATE <= 0.15 m and 0 lost; a
+                second pass bit-equal; streams 0 and 7 against Systems of
+                seeds 0 and 7, each frame stepped from the fleet's stream
+                state (1e-3 m, 1e-3 rad, identical lost flags); printed:
+                stream 0's System free running (the vmapped reductions
+                reassociate, and 40 frames amplify it), the aggregate fps
+                and its ratio to main's, kernels and kernel time a fleet
+                frame (profiler) beside one stream's;
   7. s3       — the reference bench's phase 4 (bench.py:187-262) at full
                 width: SensorStrategy 3 (stereo, laser, wheel, submap
                 building) over the 120-frame 640x480 textured square loop
@@ -199,7 +219,9 @@ K2_MAP_FLOPS_PER_TERM = 4
 XCORR = dict(backend="jnp", iter_mode="xcorr")
 CULL = {"Tracker/CullByFundationMatrix": True,
         "Tracker/FundationPixelError": 2.0}  # tests/test_fundamental.py:80
-XCORR_FRAMES = 120  # phase xcorr's depth (the main loop's first frames)
+# phase xcorr's depth (the main loop's first frames): 80 since phase fleet
+# joined (with it at 120 the whole script took 948.5 s of its 1,200 s)
+XCORR_FRAMES = 80
 # phases mapping, loc_cull and rgbd: 80 since phase backend joined (with
 # them at 120 the whole script took 865 s of its 1,200 s on an H100)
 MODE_FRAMES = 80
@@ -207,6 +229,13 @@ CLAHE_BOUND = 1e-3  # levels, clahe on "cuda" against "cpu"
 # phase small, strategy 5: the one-ulp nudged "cpu" steps tried on a frame
 # whose lost flags differ
 WITNESS_SEEDS = 16
+# bench.py phase 3 (bench.py:160-187): B streams of FLEET_FRAMES frames, the
+# streams starting at (k * 7) mod (frames - FLEET_FRAMES) of the loop
+FLEET_B = 8
+FLEET_FRAMES = 40
+FLEET_COMPARED = (0, 7)  # the streams held against single Systems
+# each timed loop's fps by label, for phase fleet's ratio to main's
+LOOP_FPS = {}
 
 
 def bench_params(width):
@@ -576,6 +605,9 @@ def phase_k1(seq, lk_mod):
     _, pyr0, pyr1, points = level_inputs(seq, 400)
     k1_pyramid_rows(lk_mod, pyr0, pyr1, points, (200, 400), kw,
                     params.max_level, False)
+    # the fleet's launch: B streams' tracks in one launch
+    batched_pyramid_rows("k1", lk_mod, "lk_pyramid", "lk_pyr_kernel", seq,
+                         params, 0.05, k1_records)
     return ptot
 
 
@@ -784,7 +816,171 @@ def phase_k2(seq, k2_mod):
           f"{sum(r['map_entries_built'] for r in pyr_rows)} map entries "
           f"built", flush=True)
     maps_yardstick(levels[fwd0], params.win_size)  # the N = 240 track's
+    batched_pyramid_rows("k2", k2_mod, "lk_xcorr_pyramid",
+                         "lk_xcorr_pyr_kernel", seq, params, 0.01,
+                         xcorr_records)
     return ptot
+
+
+def k1_records(levels, max_level, win):
+    """(bytes, FLOPs) of one K1 pyramid track's level records (k1_work;
+    the setup of the active features, and of all at the forward level 0,
+    whose min_eig is err)."""
+    return k1_work([dict(lv, setup=lv["active"] | (k == max_level))
+                    for k, lv in enumerate(levels)], win)
+
+
+def xcorr_records(levels, max_level, win):
+    """(bytes, FLOPs) of one K2 pyramid track's level records
+    (xcorr_work, with the same setup features as k1_records)."""
+    return xcorr_work([dict(lv, used=lv["active"] | (k == max_level))
+                       for k, lv in enumerate(levels)], win)[:2]
+
+
+def fleet_offsets(n_frames):
+    """bench.py:171's stream offsets: (k * 7) mod (frames - 40)."""
+    return [(k * 7) % max(n_frames - FLEET_FRAMES, 1)
+            for k in range(FLEET_B)]
+
+
+def stack_pyramids(pyrs):
+    """The streams' pyramids as one with [B, H, W] planes (the kernels'
+    stream-axis layout)."""
+    from visfs_tpu_torch.ops.kernels.pyramid import Pyramid
+
+    return Pyramid(*(tuple(torch_stack(t) for t in zip(*field))
+                     for field in zip(*[(p.levels, p.gx, p.gy)
+                                        for p in pyrs])),
+                   pyrs[0].height, pyrs[0].width, pyrs[0].pad)
+
+
+def torch_stack(tensors):
+    import torch
+
+    return torch.stack(tensors).contiguous()
+
+
+def batched_pyramid_rows(tag, mod, entry, kernel, seq, params, tol,
+                         records):
+    """A pyramid entry with the fleet's stream axis: FLEET_B streams, each
+    its own frame pair (o, o + 1) of the bench loop at bench.py's offsets
+    and N GFTT corners of frame o, N = 120 and 240, bidirectional, in one
+    launch.  Gates: one launch through the op under torch.func.vmap, which
+    equals the direct batched launch; bit-equal to B single launches;
+    against the plain version stream by stream, points within ``tol`` px,
+    status identical, err rtol 1e-3.  Device, call, plain (CUDA events
+    around the gate's plain calls, one a stream) and bound times, the bound
+    the sum of each stream's work (``records``)."""
+    import torch
+
+    from visfs_tpu_torch.ops.gftt import gftt_detect
+    from visfs_tpu_torch.ops.lk import build_lk_pyramid
+
+    cuda_fn = getattr(mod, f"{entry}_cuda")
+    plain_fn = getattr(mod, f"{entry}_reference")
+    streams = []
+    for o in fleet_offsets(len(seq.left)):
+        img0 = torch.as_tensor(seq.left[o], device="cuda")
+        img1 = torch.as_tensor(seq.left[o + 1], device="cuda")
+        det = gftt_detect(img0, 240, 0.01, 10)
+        if int(det.valid.sum()) < 240:
+            fail(f"{tag} batched: only {int(det.valid.sum())} corners in "
+                 f"frame {o}")
+        streams.append((build_lk_pyramid(img0, params),
+                        build_lk_pyramid(img1, params), det.points))
+    pkw = dict(win=params.win_size, max_level=params.max_level,
+               iterations=params.iterations, eps=params.eps,
+               min_eig_threshold=params.min_eig_threshold,
+               bidirectional=True, fb_threshold=1.5)
+    pyr_from = stack_pyramids([st[0] for st in streams])
+    pyr_to = stack_pyramids([st[1] for st in streams])
+    rows = []
+    for n in (120, 240):
+        per = [(st[0], st[1], st[2][:n].contiguous(), st[2][:n].contiguous(),
+                torch.ones(n, dtype=torch.bool, device="cuda"))
+               for st in streams]
+        pts = torch.stack([a[2] for a in per])
+        valid = torch.stack([a[4] for a in per])
+        args = (pyr_from, pyr_to, pts, pts, valid)
+        before = mod.PYR_LAUNCHES
+        vm = vmapped_entry(getattr(mod, entry), args, pkw)
+        vm_launches = mod.PYR_LAUNCHES - before
+        bk = cuda_fn(*args, **pkw)
+        singles = [cuda_fn(*a, **pkw) for a in per]
+        work, plains, plain_ms = [0, 0], [], 0.0
+        for a in per:
+            levels = []
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            plains.append(plain_fn(*a, **pkw, levels=levels))
+            e1.record()
+            e1.synchronize()
+            plain_ms += e0.elapsed_time(e1)
+            b, f = records(levels, params.max_level, params.win_size)
+            work[0] += b + nbytes(*a[2:])
+            work[1] += f
+        torch.cuda.synchronize()
+        label = f"{tag} batched B={FLEET_B} N={n}"
+        if vm_launches != 1:
+            fail(f"{label}: {vm_launches} launches under vmap, expected 1")
+        if not all(torch.equal(x, y) for x, y in zip(vm, bk)):
+            fail(f"{label}: the vmapped call differs from the direct launch")
+        for b, one in enumerate(singles):
+            if not all(torch.equal(x[b], y) for x, y in zip(bk, one)):
+                fail(f"{label}: stream {b} differs from its single launch")
+        err = max(float((bk[0][b] - p[0]).abs().max())
+                  for b, p in enumerate(plains))
+        if not err <= tol:
+            fail(f"{label}: points max|d| {err:.4g} px")
+        for b, p in enumerate(plains):
+            if not torch.equal(bk[1][b], p[1]):
+                fail(f"{label}: stream {b} status differs in "
+                     f"{int((bk[1][b] != p[1]).sum())} features")
+            np.testing.assert_allclose(bk[2][b].cpu().numpy(),
+                                       p[2].cpu().numpy(), rtol=1e-3,
+                                       atol=1e-6)
+        ms, call_ms = timed_kernel(label, lambda: cuda_fn(*args, **pkw),
+                                   kernel)
+        single_ms = timed_kernel(f"{label} single",
+                                 lambda: cuda_fn(*per[0], **pkw), kernel)[0]
+        out_bytes = nbytes(*bk)
+        bytes_ms, ops_ms = bound(work[0] + out_bytes, work[1])
+        rows.append(dict(n=n, streams=FLEET_B, entry=entry,
+                         max_abs_err=err, ms=ms, call_ms=call_ms,
+                         plain_ms=plain_ms, single_stream_ms=single_ms,
+                         bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms,
+                         ops_ms=ops_ms, bytes=work[0] + out_bytes,
+                         n_status=int(bk[1].sum())))
+    for r in rows:
+        print(f"{tag} " + json.dumps(r), flush=True)
+    tot = frame_totals(rows, 1)
+    print(f"{tag} batched pyramid entry, {FLEET_B} streams a launch: points "
+          f"max|d| {tot['max_abs_err']:.3g} px at N = 120 and 240, status "
+          f"identical, bit-equal to {FLEET_B} single launches, 1 launch "
+          f"under vmap; a fleet frame's 2 launches: kernel {tot['ms']:.4f} "
+          f"ms (one stream's launches "
+          f"{sum(r['single_stream_ms'] for r in rows):.4f} ms), calls "
+          f"{tot['call_ms']:.3f} ms (plain {tot['plain_ms']:.3f} ms, "
+          f"bound {tot['bound_ms']:.5f} ms by {tot['bound_by']})", flush=True)
+    return tot
+
+
+def vmapped_entry(entry, args, pkw):
+    """A pyramid entry under torch.func.vmap over the streams of stacked
+    arguments, as the fleet's step calls it."""
+    import torch
+
+    from visfs_tpu_torch.ops.kernels.pyramid import Pyramid
+
+    pyr_from, pyr_to = args[:2]
+    size = pyr_from[3:]
+
+    def one(planes_from, planes_to, pts, init, valid):
+        return entry(Pyramid(*planes_from, *size), Pyramid(*planes_to, *size),
+                     pts, init, valid, **pkw)
+
+    return torch.func.vmap(one)(tuple(pyr_from[:3]), tuple(pyr_to[:3]),
+                                *args[2:])
 
 
 def maps_yardstick(level, win):
@@ -946,6 +1142,7 @@ def phase_loop(label, seq, System, lk, expect, ate_rmse, params=None,
     outs = sys_.drain_outputs()
     n = frames - 2
     fps = n / elapsed
+    LOOP_FPS[label] = fps
     est = np.stack([o.pose for o in outs])
     if not np.all(np.isfinite(est)) or est.shape != (n, 4, 4):
         fail(f"{label}: poses not finite [{n}, 4, 4]: {est.shape}")
@@ -1003,6 +1200,175 @@ def phase_profile(seq, System, frames=10):
     if len(outs) != frames or any(bool(o.lost) for o in outs):
         fail(f"main profile_stages: {len(outs)} frames, lost "
              f"{[bool(o.lost) for o in outs]}")
+
+
+def phase_fleet(seq, System, expect, ate_rmse):
+    """Bench phase 3 on the card: FleetSystem(bench parameters, 8 streams)
+    over FLEET_FRAMES frames a stream from bench.py's offsets, frames 0-1
+    then a timed loop over 2-39.  expect: {(kernel module, launch counter):
+    launches per fleet frame}, every count set to 0 just before the loop
+    and read just after it.  Gates: the launches, 0 host syncs, each
+    stream's ATE <= 0.15 m (against its ground truth from its own start)
+    and 0 lost over frames 2-39; a second pass bit-equal to the timed one;
+    streams 0 and 7 against single Systems of seeds 0 and 7 on "cuda", each
+    frame stepped from the fleet's stream state (per frame 1e-3 m, 1e-3
+    rad, identical lost flags).  Printed: stream 0's System free running
+    over the same frames, the aggregate fps and its ratio to main's, and
+    the kernels and kernel time a frame (profiler, frames 40-41) of the
+    fleet and of that free-running System."""
+    import torch
+
+    from visfs_tpu_torch.slam.fleet import FleetSystem, stream_state
+
+    offs = fleet_offsets(len(seq.left))
+    n = FLEET_FRAMES + 2  # and the profiled frames 40-41
+    lefts = [torch.stack([torch.as_tensor(seq.left[o + i], device="cuda")
+                          for o in offs]) for i in range(n)]
+    rights = [torch.stack([torch.as_tensor(seq.right[o + i], device="cuda")
+                           for o in offs]) for i in range(n)]
+    stamps = [torch.tensor([float(seq.stamps[o + i]) for o in offs],
+                           dtype=torch.float32, device="cuda")
+              for i in range(n)]
+    torch.cuda.synchronize()
+    cam = seq.camera
+    fleet = FleetSystem(bench_params(WIDTH), n_streams=FLEET_B,
+                        device="cuda")
+    fleet.init(float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy),
+               float(cam.baseline), width=cam.width, height=cam.height)
+    for i in range(2):
+        fleet.input_primary_sensor_data(stamps[i], lefts[i], rights[i])
+    torch.cuda.synchronize()
+    for mod, counter in expect:
+        setattr(mod, counter, 0)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            for i in range(2, FLEET_FRAMES):
+                fleet.input_primary_sensor_data(stamps[i], lefts[i],
+                                                rights[i])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {key: getattr(*key) for key in expect}
+    syncs = [str(w.message) for w in caught
+             if "called a synchronizing" in str(w.message)]
+    outs = fleet.drain_outputs()
+    kernels, kernel_ms = device_kernels(lambda: [
+        fleet.input_primary_sensor_data(stamps[i], lefts[i], rights[i])
+        for i in (FLEET_FRAMES, FLEET_FRAMES + 1)])
+    timed = FLEET_FRAMES - 2
+    agg = timed * FLEET_B / elapsed
+    main_fps = LOOP_FPS.get("main")
+    pose = np.stack([o.pose for o in outs])  # [T, B, 4, 4]
+    if pose.shape != (FLEET_FRAMES, FLEET_B, 4, 4) or not np.all(
+            np.isfinite(pose)):
+        fail(f"fleet: poses not finite [{FLEET_FRAMES}, {FLEET_B}, 4, 4]: "
+             f"{pose.shape}")
+    lost = np.stack([o.lost for o in outs])[2:]
+    ates = []
+    for b, o in enumerate(offs):
+        gt = seq.poses[o:o + FLEET_FRAMES]
+        gt = np.linalg.inv(gt[0]) @ gt
+        ates.append(ate_rmse(pose[2:, b], gt[2:]))
+    counts = ", ".join(f"{mod.__name__.rsplit('.', 1)[-1]}.{counter} {c} "
+                       f"({c / timed:g}/frame)"
+                       for (mod, counter), c in launches.items())
+    print(f"fleet: {FLEET_B} streams x {timed} frames in {elapsed:.2f} s: "
+          f"{agg:.2f} fps aggregate"
+          + (f" = {agg / main_fps:.2f}x main's {main_fps:.2f} fps"
+             if main_fps else "")
+          + f"; stream ATE {' '.join(f'{a:.4f}' for a in ates)} m, lost "
+          f"{int(lost.sum())}/{lost.size}, {counts}, host syncs in loop "
+          f"{len(syncs)}", flush=True)
+    for msg in sorted(set(syncs))[:5]:
+        print(f"fleet: sync: {msg[:200]}", flush=True)
+    if syncs:
+        fail(f"fleet: {len(syncs)} host syncs in the loop")
+    for (mod, counter), per_frame in expect.items():
+        if launches[mod, counter] != per_frame * timed:
+            fail(f"fleet: {mod.__name__}.{counter} is "
+                 f"{launches[mod, counter]}, expected {per_frame * timed}")
+    if lost.any():
+        fail(f"fleet: {int(lost.sum())} lost stream-frames")
+    if not max(ates) <= ATE_GATE:
+        fail(f"fleet: a stream's ATE {max(ates):.4f} m > {ATE_GATE}")
+
+    # streams against single Systems.  The vmapped step's batched
+    # reductions add in another order than the single step's, and over 40
+    # frames the PnP and BA decisions amplify that (ROADMAP queue 3): each
+    # frame is held from the same state, the free run is printed.  A
+    # second pass records the states (and shows the fleet deterministic).
+    again = FleetSystem(bench_params(WIDTH), n_streams=FLEET_B,
+                        device="cuda")
+    again.init(float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy),
+               float(cam.baseline), width=cam.width, height=cam.height)
+    before = []
+    for i in range(FLEET_FRAMES):
+        before.append({b: map_tensors(stream_state(again.states, b),
+                                      lambda t: t.clone())
+                       for b in FLEET_COMPARED})
+        again.input_primary_sensor_data(stamps[i], lefts[i], rights[i])
+    outs2 = again.drain_outputs()
+    same = all(np.array_equal(getattr(a, f), getattr(c, f))
+               for a, c in zip(outs, outs2) for f in ("pose", "n_inliers"))
+    print(f"fleet: a second pass {'equals' if same else 'DIFFERS from'} "
+          f"the timed one bit for bit", flush=True)
+    if not same:
+        fail("fleet: two passes over the same frames differ")
+    for b in FLEET_COMPARED:
+        o = offs[b]
+        single = make_system(System, cam, bench_params(WIDTH), "cuda",
+                             seed=b)
+        stepped = []
+        for i in range(FLEET_FRAMES):
+            single.state = before[i][b]
+            single.input_primary_sensor_data(float(seq.stamps[o + i]),
+                                             lefts[i][b], rights[i][b])
+            stepped.append(single.output_odometry_info())
+        refs = [("stepped", stepped)]
+        if b == FLEET_COMPARED[0]:
+            free = make_system(System, cam, bench_params(WIDTH), "cuda",
+                               seed=b)
+            for i in range(FLEET_FRAMES):
+                free.input_primary_sensor_data(float(seq.stamps[o + i]),
+                                               lefts[i][b], rights[i][b])
+            refs.append(("free running", free.drain_outputs()))
+            single_kernels = device_kernels(lambda: [
+                free.input_primary_sensor_data(
+                    float(seq.stamps[o + i]), lefts[i][b], rights[i][b])
+                for i in (FLEET_FRAMES, FLEET_FRAMES + 1)])
+        gap = {}
+        for name, ref in refs:
+            g = [rel_gap(outs[i].pose[b], ref[i].pose)
+                 for i in range(FLEET_FRAMES)]
+            gap[name] = (max(x[0] for x in g), max(x[1] for x in g),
+                         max(abs(int(outs[i].n_inliers[b])
+                                 - int(ref[i].n_inliers))
+                             for i in range(FLEET_FRAMES)),
+                         all(bool(outs[i].lost[b]) == bool(ref[i].lost)
+                             for i in range(FLEET_FRAMES)))
+        print(f"fleet stream {b} (frames {o}-{o + FLEET_FRAMES - 1}) "
+              f"against a System of seed {b} on cuda, "
+              + "; ".join(f"{name}: max |dt| {t:.3g} m, max angle {r:.3g} "
+                          f"rad, inliers within {d}, lost flags "
+                          f"{'identical' if same_lost else 'DIFFER'}"
+                          for name, (t, r, d, same_lost) in gap.items()),
+              flush=True)
+        t, r, d, same_lost = gap["stepped"]
+        if not (t <= 1e-3 and r <= 1e-3 and same_lost):
+            fail(f"fleet stream {b}, each frame from the fleet's state: "
+                 f"{t:.3g} m, {r:.3g} rad, lost flags identical "
+                 f"{same_lost}")
+    wall_ms = elapsed / timed * 1e3
+    print(f"fleet kernels a fleet frame (torch.profiler, frames "
+          f"{FLEET_FRAMES}-{FLEET_FRAMES + 1}): {kernels / 2:.0f} "
+          f"({kernel_ms / 2:.2f} ms of kernel time, {wall_ms:.1f} ms of "
+          f"loop wall a frame: busy share {kernel_ms / 2 / wall_ms:.3f}); "
+          f"one stream's System: {single_kernels[0] / 2:.0f} "
+          f"({single_kernels[1] / 2:.2f} ms)", flush=True)
 
 
 def s3_params(width):
@@ -1163,6 +1529,7 @@ def phase_s3(System, cached_textured_sequence, cache_dir, expect, ate_rmse,
     outs = sys_.drain_outputs()
     n = frames - 2
     fps = n / elapsed
+    LOOP_FPS[label] = fps
     est = np.stack([o.pose for o in outs])
     if not np.all(np.isfinite(est)) or est.shape != (n, 4, 4):
         fail(f"{label}: poses not finite [{n}, 4, 4]: {est.shape}")
@@ -1989,6 +2356,7 @@ def main():
         "xcorr", phase_loop, "xcorr", seq, System, XCORR,
         {k1_pyr: 0, k1_level: 0, k2_pyr: 2, k2_level: 0}, ate_rmse,
         frames=XCORR_FRAMES)
+    timed_phase("fleet", phase_fleet, seq, System, on_k1, ate_rmse)
     timed_phase("s3", phase_s3, System, cached_textured_sequence, cache_dir,
                 on_k1, ate_rmse)
     timed_phase("mapping", phase_s3, System, cached_textured_sequence,

@@ -1,5 +1,6 @@
 """Card-only tests of visfs_tpu_torch: the CUDA kernel against its plain
-PyTorch version, and the step on "cuda" against the step on "cpu".
+PyTorch version (also with the fleet's stream axis), and the step on "cuda"
+against the step on "cpu".
 
 This file imports no JAX (the card's machine has none).  Each test skips
 without a GPU.  On the card, run it without the JAX conftest:
@@ -164,6 +165,65 @@ def test_k2_pyramid_kernel_matches_plain_version(bench_pair, n):
 def test_k2_pyramid_one_way_matches_plain_version(bench_pair, n):
     _require_gpu()
     _k2_pyramid_case(bench_pair, n, False)
+
+
+@pytest.mark.parametrize("entry", ["lk_pyramid", "lk_xcorr_pyramid"])
+def test_batched_pyramid_launch_matches_singles_and_plain(bench_pair, entry):
+    """The stream axis: 3 streams (the bench pair, the pair swapped, the
+    pair with the second image shifted) of 120 features in one launch
+    under torch.func.vmap, bit-equal to one launch a stream, and against
+    the plain version with the single-launch tolerances."""
+    _require_gpu()
+    from visfs_tpu_torch.ops.kernels.pyramid import Pyramid
+
+    mod = k1 if entry == "lk_pyramid" else k2
+    tol = 0.05 if entry == "lk_pyramid" else 0.01
+    pyr0, pyr1, points = bench_pair
+    p = LKParams()
+    shifted = build_lk_pyramid(torch.roll(pyr1.levels[0][
+        pyr1.pad:-pyr1.pad, pyr1.pad:-pyr1.pad], (2, 3), (0, 1))
+        .contiguous(), p)
+    pairs = [(pyr0, pyr1), (pyr1, pyr0), (pyr0, shifted)]
+    n = 120
+    pts = points[:n].contiguous()
+    valid = torch.ones(n, dtype=torch.bool, device="cuda")
+    kw = dict(win=p.win_size, max_level=p.max_level,
+              iterations=p.iterations, eps=p.eps,
+              min_eig_threshold=p.min_eig_threshold, bidirectional=True,
+              fb_threshold=1.5)
+
+    def planes(pyrs):
+        return tuple(tuple(torch.stack(t) for t in zip(*f)) for f in zip(
+            *[(q.levels, q.gx, q.gy) for q in pyrs]))
+
+    size = (pyr0.height, pyr0.width, pyr0.pad)
+
+    def one(pf, pt, x, v):
+        return getattr(mod, entry)(Pyramid(*pf, *size), Pyramid(*pt, *size),
+                                   x, x, v, **kw)
+
+    before = mod.PYR_LAUNCHES
+    got = torch.func.vmap(one)(planes([a for a, _ in pairs]),
+                               planes([b for _, b in pairs]),
+                               pts.expand(3, n, 2).contiguous(),
+                               valid.expand(3, n).contiguous())
+    torch.cuda.synchronize()
+    assert mod.PYR_LAUNCHES == before + 1
+    cuda_fn = getattr(mod, f"{entry}_cuda")
+    plain_fn = getattr(mod, f"{entry}_reference")
+    for i, (a, b) in enumerate(pairs):
+        single = cuda_fn(a, b, pts, pts, valid, **kw)
+        plain = plain_fn(a, b, pts, pts, valid, **kw)
+        torch.cuda.synchronize()
+        for g, w in zip(got, single):
+            assert torch.equal(g[i], w)
+        np.testing.assert_allclose(got[0][i].cpu().numpy(),
+                                   plain[0].cpu().numpy(), atol=tol)
+        np.testing.assert_array_equal(got[1][i].cpu().numpy(),
+                                      plain[1].cpu().numpy())
+        np.testing.assert_allclose(got[2][i].cpu().numpy(),
+                                   plain[2].cpu().numpy(), rtol=1e-3,
+                                   atol=1e-6)
 
 
 def test_k2_cuda_kernel_matches_plain_version():

@@ -75,8 +75,10 @@ def uniform(key, shape, minval=0.0, maxval=1.0, dtype=torch.float32):
     if dtype != torch.float32:
         raise NotImplementedError("uniform: only float32 is ported")
     bits = _random_bits32(key, shape)
-    fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
-    floats = fbits.view(torch.float32) - 1.0
+    # (mantissa | 1.0's exponent) as float32, minus 1.0, is mantissa *
+    # 2^-23 exactly; computed so, with no bitcast (a dtype view has no
+    # batching rule under torch.func.vmap in every torch release)
+    floats = (bits >> 9).to(torch.float32) * (2.0 ** -23)
     lo = torch.full((), minval, dtype=dtype, device=key.device)
     hi = torch.full((), maxval, dtype=dtype, device=key.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)

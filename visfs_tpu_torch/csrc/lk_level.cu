@@ -48,10 +48,14 @@
 //     step reads `to` from L2 tap by tap;
 //   * levels and directions run in the block's own loop: one launch per
 //     pyramidal track instead of one per level and direction.
-// ptxas (-Xptxas -v, sm_90a, CUDA 12.8): at win <= 22 both kernels use 72
-// registers and 5,028 bytes of shared memory, the pyramid kernel with a
-// 16-byte stack frame (16 bytes of spill stores, 32 of loads); at
-// win <= 32, 92 and 96 registers and 8,228 bytes.  chip_smoke.py prints it.
+//   * a fleet's streams are the grid's y axis (blockIdx.y): one launch
+//     tracks the features of every stream, B * n blocks, each the single
+//     track's block on its stream's planes (bit-equal to B launches).
+// ptxas (-Xptxas -v, sm_90a, CUDA 12.8): at win <= 22 the one-level kernel
+// uses 72 registers and the pyramid kernel 80 (72 before the stream axis),
+// with an 8-byte stack frame (8 bytes of spill stores, 4 of loads), both
+// 5,028 bytes of shared memory; at win <= 32, 92 and 120 registers (96
+// before) and 8,228 bytes.  chip_smoke.py prints it.
 
 #include <cuda_runtime.h>
 
@@ -309,11 +313,14 @@ lk_level_kernel(Planes pl, const float* __restrict__ pts,
 
 // Per level: the planes of pyramids A and B in the order
 // A, B, gx(A), gy(A), gx(B), gy(B), and the level's [h, w].  Passed by
-// value as a kernel parameter (no device-side table).
+// value as a kernel parameter (no device-side table).  With a stream axis
+// each pointer is stream 0's plane of a [n_streams, h, w] block and
+// `stride` the distance to the next stream's (h * w when contiguous).
 struct PyrPlanes {
   const float* p[kMaxLevels][6];
   int h[kMaxLevels];
   int w[kMaxLevels];
+  long long stride[kMaxLevels];  // floats from one stream's plane to the next
 };
 
 struct PyrConfig {
@@ -333,8 +340,8 @@ struct TrackResult {
 // into A.  The glue's float operations round as PyTorch's do.
 template <int MAXS, int TMAX>
 __device__ TrackResult track_pyr(const PyrPlanes& pp, const PyrConfig& cfg,
-                                 bool reverse, float x, float y, float init_x,
-                                 float init_y, bool valid, Smem<TMAX>& sm,
+                                 int stream, bool reverse, float x, float y,
+                                 float init_x, float init_y, bool valid, Smem<TMAX>& sm,
                                  int& par) {
   const int a = reverse ? 1 : 0;
   const int gxi = reverse ? 4 : 2;
@@ -345,9 +352,10 @@ __device__ TrackResult track_pyr(const PyrPlanes& pp, const PyrConfig& cfg,
   float min_eig = 0.f;
   for (int level = cfg.top; level >= 0; --level) {
     const float scale = static_cast<float>(1 << level);
-    const Planes pl{pp.p[level][a],   pp.p[level][1 - a],
-                    pp.p[level][gxi], pp.p[level][gxi + 1],
-                    pp.h[level],      pp.w[level]};
+    const long long off = stream * pp.stride[level];
+    const Planes pl{pp.p[level][a] + off,   pp.p[level][1 - a] + off,
+                    pp.p[level][gxi] + off, pp.p[level][gxi + 1] + off,
+                    pp.h[level],            pp.w[level]};
     const LevelResult r = track_level<MAXS, TMAX>(
         pl, __fadd_rn(__fdiv_rn(x, scale), cfg.pad),
         __fadd_rn(__fdiv_rn(y, scale), cfg.pad), fx, fy, ok, cfg.win,
@@ -377,21 +385,25 @@ lk_pyr_kernel(PyrPlanes pp, PyrConfig cfg, const float* __restrict__ pts_from,
               float* __restrict__ points_out,
               unsigned char* __restrict__ status_out,
               float* __restrict__ err_out, int bidirectional,
-              float fb_threshold) {
+              float fb_threshold, int pts_stride) {
   __shared__ Smem<TMAX> sm;
-  const int i = blockIdx.x;
+  // blockIdx.y is the stream; i indexes its features in the
+  // [n_streams, pts_stride] point, valid and output arrays.
+  const int stream = blockIdx.y;
+  const long long i =
+      static_cast<long long>(stream) * pts_stride + blockIdx.x;
   int par = 0;
   const float x = pts_from[2 * i];
   const float y = pts_from[2 * i + 1];
   const TrackResult fwd =
-      track_pyr<MAXS, TMAX>(pp, cfg, false, x, y, pts_init[2 * i],
+      track_pyr<MAXS, TMAX>(pp, cfg, stream, false, x, y, pts_init[2 * i],
                             pts_init[2 * i + 1], valid[i] != 0, sm, par);
   bool status = fwd.status;
   // A feature the forward track lost keeps status false whatever its
   // reverse track gives, so only tracked features run it.
   if (bidirectional && status) {
-    const TrackResult rev = track_pyr<MAXS, TMAX>(pp, cfg, true, fwd.x,
-                                                  fwd.y, x, y, true, sm, par);
+    const TrackResult rev = track_pyr<MAXS, TMAX>(
+        pp, cfg, stream, true, fwd.x, fwd.y, x, y, true, sm, par);
     const float dx = __fsub_rn(rev.x, x);
     const float dy = __fsub_rn(rev.y, y);
     const float dist =
@@ -447,24 +459,35 @@ extern "C" int visfs_lk_level(const float* img_from, const float* img_to,
 // pointers, per level A, B, gx(A), gy(A), gx(B), gy(B) (the last two may be
 // null when not bidirectional); `shapes` a host array of levels * 2 ints,
 // per level h, w.  pts_from/pts_init/points [n, 2] float32, valid/status
-// [n] bool (one byte), err [n] float32, all on the device.  Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for
-// arguments the kernel does not take.
+// [n] bool (one byte), err [n] float32, all on the device.
+// The stream axis: n_streams tracks of the same shapes in one launch, grid
+// (n, n_streams).  Each plane pointer is then stream 0's plane and
+// `strides` a host array of `levels` plane strides (floats) to the next
+// stream's; the point, valid and output arrays are [n_streams, pts_stride]
+// rows of n features.  n_streams = 1 is the single track (strides and
+// pts_stride unread).  Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for arguments the kernel does not take.
 extern "C" int visfs_lk_pyr(const float* const* planes, const int* shapes,
-                            int levels, const float* pts_from,
-                            const float* pts_init, const unsigned char* valid,
+                            int levels, int n_streams,
+                            const long long* strides, int pts_stride,
+                            const float* pts_from, const float* pts_init, const unsigned char* valid,
                             float* points_out, unsigned char* status_out,
                             float* err_out, int n, int h0, int w0, int pad,
                             int win, int iterations, float eps_sq,
                             float min_eig_threshold, int bidirectional,
                             float fb_threshold, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaSuccess);
-  if (levels < 1 || levels > kMaxLevels || win < 1 || win > kLargeWin)
+  if (n <= 0 || n_streams <= 0) return static_cast<int>(cudaSuccess);
+  if (n_streams > 65535 || (n_streams > 1 && pts_stride < n) ||
+      levels < 1 || levels > kMaxLevels || win < 1 || win > kLargeWin)
     return static_cast<int>(cudaErrorInvalidValue);
   PyrPlanes pp = {};
   for (int l = 0; l < levels; ++l) {
     pp.h[l] = shapes[2 * l];
     pp.w[l] = shapes[2 * l + 1];
+    pp.stride[l] = n_streams > 1 ? strides[l] : 0;
+    if (n_streams > 1 &&
+        pp.stride[l] < static_cast<long long>(pp.h[l]) * pp.w[l])
+      return static_cast<int>(cudaErrorInvalidValue);
     if (pp.h[l] < win + 2 || pp.w[l] < win + 2)
       return static_cast<int>(cudaErrorInvalidValue);
     for (int k = 0; k < 6; ++k) {
@@ -481,15 +504,16 @@ extern "C" int visfs_lk_pyr(const float* const* planes, const int* shapes,
                       iterations,
                       eps_sq,
                       min_eig_threshold};
+  const dim3 grid(n, n_streams);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (win <= kSmallWin) {
-    lk_pyr_kernel<4, tile_side(kSmallWin)><<<n, kThreads, 0, s>>>(
+    lk_pyr_kernel<4, tile_side(kSmallWin)><<<grid, kThreads, 0, s>>>(
         pp, cfg, pts_from, pts_init, valid, points_out, status_out, err_out,
-        bidirectional, fb_threshold);
+        bidirectional, fb_threshold, pts_stride);
   } else {
-    lk_pyr_kernel<8, tile_side(kLargeWin)><<<n, kThreads, 0, s>>>(
+    lk_pyr_kernel<8, tile_side(kLargeWin)><<<grid, kThreads, 0, s>>>(
         pp, cfg, pts_from, pts_init, valid, points_out, status_out, err_out,
-        bidirectional, fb_threshold);
+        bidirectional, fb_threshold, pts_stride);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -91,11 +91,14 @@
 //     shared memory; levels and directions run in the block's own loop:
 //     one launch per pyramidal track instead of one per level and
 //     direction, and no host dispatch for the setup and the maps.
+//   * a fleet's streams are the grid's y axis, as in lk_level.cu: one
+//     launch for every stream's track, bit-equal to one launch a stream.
 // The setup and the maps take 92-98 % of a launch (chip_smoke.py's probe
 // with eps = 1e9, one step a running level): the map stage runs on 3 warps,
 // one per SM sub-partition, as a stream of shared-memory reads and FMAs.
-// ptxas (-Xptxas -v, sm_90a, CUDA 12.8): the pyramid kernel 64 registers,
-// 23,488 bytes of shared memory, no spill; the one-level kernel 48
+// ptxas (-Xptxas -v, sm_90a, CUDA 12.8): the pyramid kernel 56 registers
+// (64 before the stream axis), 23,488 bytes of shared memory, an 8-byte
+// stack frame (8 bytes of spill stores, 8 of loads); the one-level kernel 48
 // registers, a 24-byte stack frame (20 bytes of spill stores, 52 of loads).
 // chip_smoke.py prints it.
 
@@ -468,11 +471,14 @@ __device__ LevelResult xcorr_level(const Planes& pl, float px, float py,
 
 // Per level: the planes of pyramids A and B in the order
 // A, B, gx(A), gy(A), gx(B), gy(B), and the level's [h, w].  Passed by
-// value as a kernel parameter (no device-side table).
+// value as a kernel parameter (no device-side table).  With a stream axis
+// each pointer is stream 0's plane of a [n_streams, h, w] block and
+// `stride` the distance to the next stream's (h * w when contiguous).
 struct PyrPlanes {
   const float* p[kMaxLevels][6];
   int h[kMaxLevels];
   int w[kMaxLevels];
+  long long stride[kMaxLevels];  // floats from one stream's plane to the next
 };
 
 struct PyrConfig {
@@ -492,8 +498,8 @@ struct TrackResult {
 // or (reverse) from B into A.  The glue's float operations round as
 // PyTorch's do.
 __device__ TrackResult track_pyr(const PyrPlanes& pp, const PyrConfig& cfg,
-                                 bool reverse, float x, float y, float init_x,
-                                 float init_y, bool valid, Smem& sm,
+                                 int stream, bool reverse, float x, float y,
+                                 float init_x, float init_y, bool valid, Smem& sm,
                                  int& par) {
   const int a = reverse ? 1 : 0;
   const int gxi = reverse ? 4 : 2;
@@ -504,9 +510,10 @@ __device__ TrackResult track_pyr(const PyrPlanes& pp, const PyrConfig& cfg,
   float min_eig = 0.0f;
   for (int level = cfg.top; level >= 0; --level) {
     const float scale = static_cast<float>(1 << level);
-    const Planes pl{pp.p[level][a],   pp.p[level][1 - a],
-                    pp.p[level][gxi], pp.p[level][gxi + 1],
-                    pp.h[level],      pp.w[level]};
+    const long long off = stream * pp.stride[level];
+    const Planes pl{pp.p[level][a] + off,   pp.p[level][1 - a] + off,
+                    pp.p[level][gxi] + off, pp.p[level][gxi + 1] + off,
+                    pp.h[level],            pp.w[level]};
     const LevelResult r = xcorr_level(
         pl, __fadd_rn(__fdiv_rn(x, scale), cfg.pad),
         __fadd_rn(__fdiv_rn(y, scale), cfg.pad), fx, fy, ok,
@@ -537,21 +544,25 @@ lk_xcorr_pyr_kernel(PyrPlanes pp, PyrConfig cfg,
                     float* __restrict__ points_out,
                     unsigned char* __restrict__ status_out,
                     float* __restrict__ err_out, int bidirectional,
-                    float fb_threshold) {
+                    float fb_threshold, int pts_stride) {
   __shared__ Smem sm;
-  const int i = blockIdx.x;
+  // blockIdx.y is the stream; i indexes its features in the
+  // [n_streams, pts_stride] point, valid and output arrays.
+  const int stream = blockIdx.y;
+  const long long i =
+      static_cast<long long>(stream) * pts_stride + blockIdx.x;
   int par = 0;
   const float x = pts_from[2 * i];
   const float y = pts_from[2 * i + 1];
   const TrackResult fwd =
-      track_pyr(pp, cfg, false, x, y, pts_init[2 * i], pts_init[2 * i + 1],
-                valid[i] != 0, sm, par);
+      track_pyr(pp, cfg, stream, false, x, y, pts_init[2 * i],
+                pts_init[2 * i + 1], valid[i] != 0, sm, par);
   bool status = fwd.status;
   // A feature the forward track lost keeps status false whatever its
   // reverse track gives, so only tracked features run it.
   if (bidirectional && status) {
     const TrackResult rev =
-        track_pyr(pp, cfg, true, fwd.x, fwd.y, x, y, true, sm, par);
+        track_pyr(pp, cfg, stream, true, fwd.x, fwd.y, x, y, true, sm, par);
     const float dx = __fsub_rn(rev.x, x);
     const float dy = __fsub_rn(rev.y, y);
     const float dist =
@@ -607,12 +618,15 @@ extern "C" int visfs_lk_xcorr(const float* c1, const float* c2,
 // gy(B) (the last two may be null when not bidirectional); `shapes` a host
 // array of levels * 2 ints, per level h, w (each at least win + 2).
 // pts_from/pts_init/points [n, 2] float32, valid/status [n] bool (one
-// byte), err [n] float32, all on the device.  Returns cudaGetLastError()
-// after the launch, or cudaErrorInvalidValue for arguments the kernel does
-// not take.
+// byte), err [n] float32, all on the device.  The stream axis is
+// visfs_lk_pyr's (lk_level.cu): grid (n, n_streams), per-level plane
+// strides in `strides` (host), [n_streams, pts_stride] point and output
+// rows.  Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for arguments the kernel does not take.
 extern "C" int visfs_lk_xcorr_pyr(const float* const* planes,
                                   const int* shapes, int levels,
-                                  const float* pts_from,
+                                  int n_streams, const long long* strides,
+                                  int pts_stride, const float* pts_from,
                                   const float* pts_init,
                                   const unsigned char* valid,
                                   float* points_out,
@@ -621,13 +635,18 @@ extern "C" int visfs_lk_xcorr_pyr(const float* const* planes,
                                   int iterations, float eps_sq,
                                   float min_eig_threshold, int bidirectional,
                                   float fb_threshold, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaSuccess);
-  if (levels < 1 || levels > kMaxLevels || win < 1 || win > kMaxWin)
+  if (n <= 0 || n_streams <= 0) return static_cast<int>(cudaSuccess);
+  if (n_streams > 65535 || (n_streams > 1 && pts_stride < n) ||
+      levels < 1 || levels > kMaxLevels || win < 1 || win > kMaxWin)
     return static_cast<int>(cudaErrorInvalidValue);
   PyrPlanes pp = {};
   for (int l = 0; l < levels; ++l) {
     pp.h[l] = shapes[2 * l];
     pp.w[l] = shapes[2 * l + 1];
+    pp.stride[l] = n_streams > 1 ? strides[l] : 0;
+    if (n_streams > 1 &&
+        pp.stride[l] < static_cast<long long>(pp.h[l]) * pp.w[l])
+      return static_cast<int>(cudaErrorInvalidValue);
     if (pp.h[l] < win + 2 || pp.w[l] < win + 2)
       return static_cast<int>(cudaErrorInvalidValue);
     for (int k = 0; k < 6; ++k) {
@@ -644,8 +663,10 @@ extern "C" int visfs_lk_xcorr_pyr(const float* const* planes,
                       iterations,
                       eps_sq,
                       min_eig_threshold};
-  lk_xcorr_pyr_kernel<<<n, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(n, n_streams);
+  lk_xcorr_pyr_kernel<<<grid, kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
       pp, cfg, pts_from, pts_init, valid, points_out, status_out, err_out,
-      bidirectional, fb_threshold);
+      bidirectional, fb_threshold, pts_stride);
   return static_cast<int>(cudaGetLastError());
 }

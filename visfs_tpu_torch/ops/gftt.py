@@ -42,8 +42,9 @@ def _neighbours(a, fill):
     """[24, gh, gw]: for each 5x5 offset (dy, dx) != 0, result[o, y, x] =
     a[y + dy, x + dx], or ``fill`` off the grid."""
     gh, gw = a.shape
-    ap = torch.full((gh + 4, gw + 4), fill, dtype=a.dtype, device=a.device)
-    ap[2:gh + 2, 2:gw + 2] = a
+    # padded out of place: under torch.func.vmap a batched `a` cannot be
+    # written into a fresh unbatched tensor
+    ap = torch.nn.functional.pad(a, (2, 2, 2, 2), value=fill)
     return torch.stack([ap[2 + dy:2 + dy + gh, 2 + dx:2 + dx + gw]
                         for dy, dx in _OFFSETS])
 

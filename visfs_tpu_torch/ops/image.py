@@ -143,7 +143,7 @@ def clahe_luts(img, clip_limit: float = 3.0, grid: int = 8,
     bins = torch.clamp(tiles.to(torch.int64), 0, n_bins - 1)
     # adds of 1.0: exact counts below 2^24
     hist = torch.zeros((grid * grid, n_bins), dtype=torch.float32,
-                       device=img.device).scatter_add_(
+                       device=img.device).scatter_add(
                            1, bins, torch.ones_like(tiles))
     clip = clip_limit * (th * tw) / n_bins
     excess = torch.sum(torch.clamp(hist - clip, min=0.0), dim=1,

@@ -29,8 +29,8 @@ import functools
 import torch
 
 from ._build import load_library
-from .pyramid import (MAX_LEVELS, PYR_ARGTYPES, check_pyr, check_tensors,
-                      launch_pyr, track_bidirectional, track_pyramid)
+from .pyramid import (MAX_LEVELS, PYR_ARGTYPES, check_tensors, launch_pyr,
+                      pyramid_op, track_bidirectional, track_pyramid)
 
 LAUNCHES = 0
 PYR_LAUNCHES = 0
@@ -205,27 +205,24 @@ def lk_pyramid(pyr_from, pyr_to, pts_from, pts_init, valid, *, win: int,
     """Track pts_from [N, 2] (pyr_from's image) into pyr_to's image from
     pts_init, over levels max_level .. 0, for the features valid [N] bool
     selects; with ``bidirectional``, gate by the reverse track.
-    Returns (points [N, 2], status [N] bool, err [N] level-0 min_eig)."""
-    kw = dict(win=win, max_level=max_level, iterations=iterations, eps=eps,
-              min_eig_threshold=min_eig_threshold,
-              bidirectional=bidirectional, fb_threshold=fb_threshold)
-    kind = pts_from.device.type
-    if kind == "cuda":  # checks its inputs itself (once: the tracker's path)
-        return lk_pyramid_cuda(pyr_from, pyr_to, pts_from, pts_init, valid,
-                               **kw)
-    check_pyr(pyr_from, pyr_to, pts_from, pts_init, valid, win, max_level,
-              bidirectional, "lk_pyramid")
-    if kind == "cpu":
-        return lk_pyramid_reference(pyr_from, pyr_to, pts_from, pts_init,
-                                    valid, **kw)
-    raise ValueError(f"lk_pyramid: unsupported device {pts_from.device}")
+    Returns (points [N, 2], status [N] bool, err [N] level-0 min_eig).
+
+    The custom op ``visfs_tpu_torch::lk_pyramid`` (``pyramid_op``): one
+    launch on CUDA tensors, the plain version on CPU tensors; under
+    ``torch.func.vmap`` one launch with a stream axis for all streams."""
+    return _LK_PYRAMID(
+        pyr_from, pyr_to, pts_from, pts_init, valid, win=win,
+        max_level=max_level, iterations=iterations, eps=eps,
+        min_eig_threshold=min_eig_threshold, bidirectional=bidirectional,
+        fb_threshold=fb_threshold)
 
 
 def lk_pyramid_cuda(pyr_from, pyr_to, pts_from, pts_init, valid, *,
                     win: int, max_level: int, iterations: int, eps: float,
                     min_eig_threshold: float, bidirectional: bool,
                     fb_threshold: float):
-    """Launch the pyramid entry (raises when CUDA is absent or the launch
+    """Launch the pyramid entry, with a stream axis for planes [B, H, W]
+    and points [B, N, 2] (raises when CUDA is absent or the launch
     fails)."""
     global PYR_LAUNCHES
     out = launch_pyr(build().visfs_lk_pyr, "lk_pyramid", pyr_from, pyr_to,
@@ -266,3 +263,6 @@ def lk_pyramid_reference(pyr_from, pyr_to, pts_from, pts_init, valid, *,
         return track(pyr_from, pyr_to, pts_from, pts_init, valid)
     return track_bidirectional(track, pyr_from, pyr_to, pts_from, pts_init,
                                valid, fb_threshold)
+
+
+_LK_PYRAMID = pyramid_op("lk_pyramid", lk_pyramid_cuda, lk_pyramid_reference)

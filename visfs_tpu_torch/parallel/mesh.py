@@ -50,6 +50,28 @@ def all_gather(x, group: Optional[dist.ProcessGroup]):
     return torch.cat(parts)
 
 
+def gather_stacked(tensors, group: Optional[dist.ProcessGroup]) -> list:
+    """Each of ``tensors`` from every rank, stacked on a new axis 0 in rank
+    order ([1, ...] for None), in one all_gather: the tensors travel packed
+    into float64, which holds their float32, int32 and bool values
+    exactly."""
+    flat = torch.cat([t.reshape(-1).to(torch.float64) for t in tensors])
+    if group is None:
+        rows = flat[None]
+    else:
+        parts = [torch.empty_like(flat)
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, flat, group=group)
+        rows = torch.stack(parts)
+    out, at = [], 0
+    for t in tensors:
+        n = t.numel()
+        out.append(rows[:, at:at + n].reshape(
+            (rows.shape[0],) + tuple(t.shape)).to(t.dtype))
+        at += n
+    return out
+
+
 def shard(x, group: Optional[dist.ProcessGroup], axis: int = 0):
     """This rank's contiguous block of ``x`` along ``axis``, as shard_map
     splits an axis (its size must divide evenly: ``pad_to_devices``)."""
@@ -118,6 +140,12 @@ def edge_mesh(group: Optional[dist.ProcessGroup] = None) -> Mesh:
 def landmark_mesh(group: Optional[dist.ProcessGroup] = None) -> Mesh:
     """The landmark axis of the distributed Schur BA."""
     return Mesh(group, "lm")
+
+
+def fleet_mesh(group: Optional[dist.ProcessGroup] = None) -> Mesh:
+    """The data-parallel axis: one VO stream per rank (``slam.fleet.
+    dp_fleet_step``, ``slam.multi_robot.FleetMapping``)."""
+    return Mesh(group, "dp")
 
 
 def pad_to_devices(x, mesh: Optional[Mesh], axis: int = 0, fill=0):

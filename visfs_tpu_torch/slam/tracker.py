@@ -222,8 +222,7 @@ def tracker_step(features: FeatureTable, prev_left, prev_right, left, right,
         ext[target, cur_col] = values.to(a.dtype)
         return ext[:Fcap]
 
-    new_obs = torch.zeros((M, W), dtype=torch.bool, device=dev)
-    new_obs[:, cur_col] = has_slot
+    new_obs = has_slot[:, None] & (torch.arange(W, device=dev) == cur_col)
     frame_fill = torch.full((M,), 0, dtype=I32, device=dev) + frame_id
     new_features = FeatureTable(
         fid=put(f.fid, new_fids), valid=put(f.valid, has_slot),

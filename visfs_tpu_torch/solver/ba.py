@@ -159,13 +159,12 @@ def _gn_normal_equations(problem: BAProblem, lm_pos, pose_q, pose_t,
     g_l = -torch.einsum("lpki,lpk->li", wJl, r)  # [L,3]
     W = torch.einsum("lpki,lpkj->lipj", wJl, Jp).reshape(L, 3, 6 * P)
 
-    # Pose-pose Hessian as [P,6,P,6]: stereo diagonal + odometry links.
-    H = torch.zeros((P, 6, P, 6), dtype=pose_t.dtype, device=pose_t.device)
-    ar = torch.arange(P, device=pose_t.device)
-    H[ar, :, ar, :] = U
-    # the landmark sums over ranks; the link and laser terms below are
-    # replicated and added once
-    psum(H, group)
+    # Pose-pose Hessian as [P,6,P,6]: stereo diagonal + odometry links,
+    # assembled out of place from its diagonal, super- and sub-diagonal
+    # blocks (under torch.func.vmap a batched block cannot be written into
+    # a fresh tensor).  The landmark sums over ranks; the link and laser
+    # terms below are replicated and added once.
+    U = psum(U.contiguous(), group)
     links = _link_terms(problem, pose_q, pose_t)
     r_link = pose_link_residual(*links)
     J1, J2 = pose_link_jacobians(*links)
@@ -173,15 +172,30 @@ def _gn_normal_equations(problem: BAProblem, lm_pos, pose_q, pose_t,
              * problem.link_mask.to(pose_t.dtype))[:, None, None]
     wJ1 = w_odo * J1
     wJ2 = w_odo * J2
-    lo, hi = ar[:-1], ar[1:]
     H12 = torch.swapaxes(wJ1, -1, -2) @ J2
-    H[lo, :, lo, :] += torch.swapaxes(wJ1, -1, -2) @ J1
-    H[hi, :, hi, :] += torch.swapaxes(wJ2, -1, -2) @ J2
-    H[lo, :, hi, :] += H12
-    H[hi, :, lo, :] += torch.swapaxes(H12, -1, -2)
-    g_links = torch.zeros((P, 6), dtype=pose_t.dtype, device=pose_t.device)
-    g_links[lo] -= (torch.swapaxes(wJ1, -1, -2) @ r_link[..., None])[..., 0]
-    g_links[hi] -= (torch.swapaxes(wJ2, -1, -2) @ r_link[..., None])[..., 0]
+
+    def at_lo(x):  # x [P-1, ...] on the link's first pose p, zero at P-1
+        return torch.cat([x, torch.zeros_like(x[:1])])
+
+    def at_hi(x):  # x [P-1, ...] on the link's second pose p + 1
+        return torch.cat([torch.zeros_like(x[:1]), x])
+
+    diag = (U + at_lo(torch.swapaxes(wJ1, -1, -2) @ J1)) \
+        + at_hi(torch.swapaxes(wJ2, -1, -2) @ J2)
+    ar = torch.arange(P, device=pose_t.device)
+    offset = (ar[None, :] - ar[:, None])[:, None, :, None]  # q - p
+
+    def block(x):  # [P, 6, 6] rows of blocks -> [P, 6, 1, 6]
+        return x[:, :, None, :]
+
+    H = torch.where(offset == 0, block(diag), torch.where(
+        offset == 1, block(at_lo(H12)), torch.where(
+            offset == -1, block(at_hi(torch.swapaxes(H12, -1, -2))),
+            torch.zeros((), dtype=pose_t.dtype, device=pose_t.device))))
+    g_links = (-at_lo((torch.swapaxes(wJ1, -1, -2)
+                       @ r_link[..., None])[..., 0])
+               - at_hi((torch.swapaxes(wJ2, -1, -2)
+                        @ r_link[..., None])[..., 0]))
     if problem.laser is not None:
         # laser terms on the newest pose (strategies 4/5)
         r_l, J_l, w_l = _laser_terms(problem, pose_q, pose_t)
