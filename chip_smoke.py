@@ -101,7 +101,7 @@ Phases (each prints its lines; any failure exits non-zero without the final
                 launch of K1's pyramid entry a frame (the temporal track;
                 depth replaces the stereo track) and 0 of every other
                 entry, 0 host syncs;
- 11. small    — the System on "cuda" and "cpu" over 8 frames at 160x120, at
+ 11. small    — the System on "cuda" and "cpu" over 6 frames at 160x120, at
                 K1 (the System's default), xcorr, and the reference System's
                 own LK configuration (backend="jnp", direct iteration),
                 SensorStrategy 1 on the ray-cast depth, CLAHE, and
@@ -156,6 +156,30 @@ Phases (each prints its lines; any failure exits non-zero without the final
                 the keyframe error before and after, the times and kernels
                 (profiler) of close_loops, one verify_loop and optimize
                 printed.
+ 14. node     — the node (the robot's way of running the system, the
+                reference's ROS node): configs/sim_mapping.yaml's whole
+                operating point (node block: approx sync, queue 10, slop
+                0.01; visfs block) through VISFSAdapter with the native
+                sync runtime over a StaticTransport on "cuda", the frame
+                tree the sequence's own (identity) extrinsics, the baseline
+                from the camera info; the first 80 frames of phase s3's
+                sequence injected from the main thread as host numpy in
+                stamp order (wheel rows, scan, left, right) with
+                back-pressure (the next frame only while the synced queue
+                holds fewer than 9), spin_once draining, the runtime's C++
+                worker stepping the System: ATE <= 0.15 m and 0 lost over
+                frames 2-79, phase s3's map gate, exactly 2 launches of K1's
+                pyramid entry a frame and 0 of every other entry, synced =
+                processed = 80 and nothing dropped, 80 odom and odom_info
+                published, the odometry buffer's head equal to the wheel
+                rows injected, 0 host syncs in one input of host numpy
+                frames, wheel rows and scan (a probe System), save_system ->
+                restore_system into a fresh System and 5 more frames on
+                both bit-equal, render_frame and render_submap shapes; fps,
+                the enqueue-to-publish latency p50/p99 and the runtime's
+                last_latency_ms printed.  Phase backend also saves its
+                session's back-end (save_mapping), restores it into a fresh
+                MappingBackend and solves both graphs once: bit-equal.
 Each phase's seconds are printed, and the profiler traces each kernel row
 took (a trace may come back without its device records).  The kernels JSON
 line, the nvidia-smi line and the final {"ok": true, "device": ...} line
@@ -1376,10 +1400,11 @@ def s3_params(width):
     return dict(bench_params(width), **{"System/SensorStrategy": 3})
 
 
-def wheel_and_scan_feeder(sys_, seq, lefts, rights, wheel=True, scans=True):
-    """feed(i): frame i's wheel rows up to its stamp in one batch, then the
-    frame with its scan (bench.py:221-234)."""
-    pos = [0]
+def wheel_and_scan_feeder(sys_, seq, lefts, rights, wheel=True, scans=True,
+                          row=0):
+    """feed(i): frame i's wheel rows up to its stamp in one batch (from
+    wheel row ``row`` on), then the frame with its scan (bench.py:221-234)."""
+    pos = [row]
     odom = seq.wheel_odom
 
     def feed(i):
@@ -1641,10 +1666,16 @@ def compare_submaps(label, a, b):
             f"within {dxy:.3g} m, {differ} of {known} known cells differ")
 
 
+# phase small's depth: at LocalMap/NumRangeDataLimit 3, 6 frames start a
+# second submap (frame 3) and finish the first (frame 5)
+SMALL_FRAMES = 6
+
+
 def phase_small(System, cached_textured_sequence, cache_dir):
     from visfs_tpu_torch.operating_points import SIM_LOCALIZATION
 
-    seq = cached_textured_sequence(cache_dir=cache_dir, n_frames=8,
+    seq = cached_textured_sequence(cache_dir=cache_dir,
+                                   n_frames=SMALL_FRAMES,
                                    width=160, height=120, motion="square",
                                    seed=0, speed=2.0, with_laser=True,
                                    n_beams=180, with_depth=True,
@@ -1670,10 +1701,11 @@ def phase_small(System, cached_textured_sequence, cache_dir):
         for dev in ("cuda", "cpu"):
             s = make_system(System, seq.camera, p, dev, lk)
             runs[dev] = s.run_sequence(seq.stamps, seq.left, right)
-        print(f"small {label}: cuda vs cpu over 8 frames at 160x120: "
+        print(f"small {label}: cuda vs cpu over {SMALL_FRAMES} frames at "
+              "160x120: "
               + compare_runs(label, runs["cuda"], runs["cpu"]), flush=True)
     # strategies 2 and 3 with wheel rows, scans at 3, free running (3 also
-    # with CLAHE); a submap rotates every 3 scans, so 8 frames start a
+    # with CLAHE); a submap rotates every 3 scans, so SMALL_FRAMES start a
     # second one and finish the first
     for strategy, extra in ((2, {}), (3, {}), (3, {"System/CLAHE": True})):
         p = dict(fusion_params(params, strategy), **extra)
@@ -1690,7 +1722,8 @@ def phase_small(System, cached_textured_sequence, cache_dir):
             line += "; " + compare_submaps(
                 label, free["cuda"].state.laser.submaps,
                 free["cpu"].state.laser.submaps)
-        print(f"small {label}: cuda vs cpu over 8 frames at 160x120, free "
+        print(f"small {label}: cuda vs cpu over {SMALL_FRAMES} frames at "
+              "160x120, free "
               f"running: {line}", flush=True)
     # strategies 4 (wheel rows) and 5 (none: its own path, PnP and the
     # laser-only BA) with scans.  Free running, float-level noise moves
@@ -1870,6 +1903,7 @@ def phase_backend(cached_textured_sequence, cache_dir, ate_rmse, expect):
 
     from visfs_tpu_torch.core.camera import make_stereo_camera
     from visfs_tpu_torch.core.lie import se3_matrix
+    from visfs_tpu_torch.io import checkpoint
     from visfs_tpu_torch.slam import mapping
     from visfs_tpu_torch.slam.multi_robot import MultiRobotMapping
 
@@ -2025,6 +2059,7 @@ def phase_backend(cached_textured_sequence, cache_dir, ate_rmse, expect):
     t0 = time.perf_counter()
     chi2 = session.optimize(**BACKEND_SOLVE)
     solve_wall = (time.perf_counter() - t0) * 1e3
+    mapping_resumed(checkpoint, mapping, backend, g0, cache_dir)
     err1 = keyframe_error(session.poses(), backend.graph, seq)
     g_cpu, _ = mapping.optimize_graph(
         mapping.KeyframeGraph(*(x.cpu() for x in g0)), None, **BACKEND_SOLVE)
@@ -2056,6 +2091,274 @@ def phase_backend(cached_textured_sequence, cache_dir, ate_rmse, expect):
     if g_dt > GRAPH_POSE_BOUND or g_dang > GRAPH_POSE_BOUND:
         fail(f"backend: optimize_graph cuda vs cpu {g_dt:.3g} m, "
              f"{g_dang:.3g} rad")
+    return launches
+
+
+def mapping_resumed(checkpoint, mapping, backend, g0, cache_dir):
+    """Checkpoint/resume of the session's back-end: ``backend`` (its graph
+    g0 before the solve, its snapshots and bookkeeping) through
+    save_mapping into a fresh MappingBackend by restore_mapping, then one
+    solve of each graph: bit-equal.  The pose graph's index_add_ adds in
+    atomic order on CUDA, so these two solves run under PyTorch's
+    deterministic algorithms (any op without one is printed)."""
+    import torch
+
+    ckpt = os.path.join(os.path.dirname(cache_dir), "node_ckpt",
+                        "backend_mapping.npz")
+    saved = backend.graph
+    backend.graph = g0
+    try:
+        checkpoint.save_mapping(ckpt, backend)
+    finally:
+        backend.graph = saved
+    restored = mapping.MappingBackend(
+        None, max_nodes=BACKEND_SESSION["max_nodes"],
+        max_edges=BACKEND_SESSION["max_edges"], device="cuda")
+    checkpoint.restore_mapping(ckpt, restored)
+    unequal = [f for f in mapping.KeyframeGraph._fields
+               if not torch.equal(getattr(restored.graph, f),
+                                  getattr(g0, f))]
+    unequal += [f"snapshot {k}" for k in sorted(backend.snapshots)
+                if k not in restored.snapshots or not all(
+                    torch.equal(a, b) for a, b in zip(
+                        restored.snapshots[k], backend.snapshots[k]))]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            g_a, chi2_a = mapping.optimize_graph(g0, None, **BACKEND_SOLVE)
+            chi2_b = restored.optimize(**BACKEND_SOLVE)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    solved = [f for f in mapping.KeyframeGraph._fields
+              if not torch.equal(getattr(restored.graph, f),
+                                 getattr(g_a, f))]
+    notes = sorted({str(w.message)[:160] for w in caught})
+    print(f"backend: save_mapping -> restore_mapping: graph and "
+          f"{len(restored.snapshots)} snapshots "
+          f"{'bit-equal' if not unequal else f'differ: {unequal}'}; one "
+          f"solve each (deterministic algorithms): "
+          f"{'bit-equal' if not solved else f'differs in {solved}'}, chi2 "
+          f"{float(chi2_a):.9g} / {chi2_b:.9g}; warnings: "
+          f"{notes or 'none'}", flush=True)
+    if unequal or solved or float(chi2_a) != chi2_b:
+        fail(f"backend: the restored mapping is not bit-equal "
+             f"({unequal}, {solved})")
+
+
+# phase node: the frames stepped directly on the node's System and on its
+# restored copy after the run (phase s3's sequence has 120)
+NODE_RESUMED = 5
+# phase node's main thread drains outputs and waits for queue space at 50
+# Hz: no wheel push blocks it, and a poll every 1 ms takes the GIL from the
+# worker's eager step (on an H100 host the node ran 1.07 fps beside phase
+# mapping's 1.87 with it)
+NODE_POLL_S = 0.02
+
+
+def node_adapter(seq, op, transport, use_native_runtime):
+    """A VISFSAdapter on "cuda" over ``transport`` with phase s3's System
+    sizes."""
+    from visfs_tpu_torch.io.adapter import VISFSAdapter
+    from visfs_tpu_torch.slam.system import System
+
+    def system_cls(params, device):
+        return System(params, device=device, scan_capacity=S3_SCAN_CAPACITY,
+                      submap_extent_cells=256)
+
+    return VISFSAdapter(op, transport, system_cls=system_cls,
+                        use_native_runtime=use_native_runtime, device="cuda")
+
+
+def phase_node(cached_textured_sequence, cache_dir, ate_rmse, expect):
+    """The node on the card: configs/sim_mapping.yaml's whole operating
+    point (node block: approx sync, queue 10, slop 0.01; visfs block:
+    strategy 3 with CLAHE) through VISFSAdapter(use_native_runtime=True)
+    over a StaticTransport, its frame tree the sequence's own extrinsics
+    (identity) and its baseline the right camera info's (base_line 0, as
+    tests/test_zmq_transport.py runs it).  Phase s3's 640x480 sequence
+    (seed 1, 180-beam scans, 10 wheel rows a frame), its first MODE_FRAMES
+    frames injected from the main thread as host numpy in stamp order
+    (wheel rows, scan, left, right), the next frame only while the synced
+    queue holds fewer than capacity - 1, spin_once draining between; the
+    runtime's C++ worker steps the System meanwhile, so wheel rows for
+    later stamps arrive while steps run.  Gates: ATE and lost over frames
+    2.., phase s3's map gate, exactly ``expect`` launches a frame (counts
+    set to 0 just before the run, read after stop()), synced = processed =
+    frames, nothing dropped, an odom and an odom_info a frame, the
+    odometry buffer's head equal to the rows injected, 0 host syncs in one
+    frame's feed of host numpy (a probe System: its wheel rows, the frames
+    and the scan), the System
+    saved and restored into a fresh one and both stepped on the next
+    NODE_RESUMED frames bit-equal, render_frame and render_submap shapes.
+    Printed: fps, the enqueue-to-publish latency p50/p99 (host clock: the
+    right image's injection to its odom publish), the runtime's
+    last_latency_ms."""
+    import torch
+
+    from visfs_tpu_torch.io import checkpoint
+    from visfs_tpu_torch.io.adapter import CameraInfo, StaticTransport
+    from visfs_tpu_torch.operating_points import operating_point
+    from visfs_tpu_torch.slam.monitor import render_frame, render_submap
+
+    seq = cached_textured_sequence(cache_dir=cache_dir, device="cuda",
+                                   **S3_RENDER)
+    n = MODE_FRAMES
+    cam = seq.camera
+    fx, fy, cx, cy = (float(cam.fx), float(cam.fy), float(cam.cx),
+                      float(cam.cy))
+    infos = (CameraInfo(cam.width, cam.height, fx, fy, cx, cy),
+             CameraInfo(cam.width, cam.height, fx, fy, cx, cy,
+                        tx=-fx * float(cam.baseline)))
+    op = operating_point("sim_mapping")
+    op.node["base_line"] = 0.0
+    op.frames = {c: {"parent": "base_link", "xyz": [0.0, 0.0, 0.0],
+                     "rpy": [0.0, 0.0, 0.0]}
+                 for c in ("camera_link", "sick_laser_link")}
+
+    # numpy frames enter without a host sync (a probe System: frame 0,
+    # then frame 1's wheel rows and frame under the sync check)
+    probe = node_adapter(seq, op, StaticTransport(*infos, frames=op.frames),
+                         False).system
+    feed = wheel_and_scan_feeder(probe, seq, seq.left, seq.right)
+    feed(0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        feed(1)
+    except RuntimeError as e:
+        fail(f"node: a host sync feeding numpy frames: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    probe.drain_outputs()
+    del probe
+
+    tr = StaticTransport(*infos, frames=op.frames)
+    published_at = {}
+    publish = tr.publish
+
+    def timed_publish(topic, message):  # keyed by the float32 stamp
+        if topic == "odom":
+            published_at[float(message.stamp)] = time.perf_counter()
+        publish(topic, message)
+
+    tr.publish = timed_publish
+    ad = node_adapter(seq, op, tr, True)
+    sys_ = ad.system
+    capacity = int(op.node["queue_size"])
+    slop = 0.01 if op.node.get("approx_sync", True) else 0.0
+    print(f"node: VISFSAdapter on {sys_.device}, native runtime queue "
+          f"{capacity}, slop {slop} s; strategy "
+          f"{sys_.cfg.system_sensor_strategy}, CLAHE {sys_.cfg.system_clahe}"
+          f", baseline {float(sys_.camera.baseline):.4f} m from the camera "
+          f"info; {n} frames {WIDTH}x{HEIGHT}", flush=True)
+    injected_at, rows, done = {}, 0, 0
+    odom = seq.wheel_odom
+    for mod, counter in expect:
+        setattr(mod, counter, 0)
+    t0 = time.perf_counter()
+    ad.start()
+    try:
+        for i in range(n):
+            while ad._rt.rt.queue_depth() >= capacity - 1 \
+                    and not ad._rt.errors:
+                done += ad.spin_once()
+                time.sleep(NODE_POLL_S)
+            t = float(seq.stamps[i])
+            while rows < len(odom) and odom[rows][0] <= t + 1e-9:
+                tr.inject("wheel_odom", float(odom[rows][0]),
+                          odom[rows][1:7])
+                rows += 1
+            tr.inject("laser_scan", t, seq.laser_scans[i])
+            tr.inject("left/image", t, seq.left[i])
+            injected_at[float(np.float32(t))] = time.perf_counter()
+            tr.inject("right/image", t, seq.right[i])
+            done += ad.spin_once()
+        deadline = time.perf_counter() + 300.0
+        while done < n and time.perf_counter() < deadline \
+                and not ad._rt.errors:
+            done += ad.spin_once()
+            time.sleep(NODE_POLL_S)
+    finally:
+        ad.stop()
+    if ad._rt.errors:
+        fail(f"node: {len(ad._rt.errors)} steps raised on the runtime's "
+             f"worker, the first: {ad._rt.errors[0]!r}")
+    elapsed = max(published_at.values(), default=t0) - t0
+    launches = {key: getattr(*key) for key in expect}
+    stats = ad._rt.stats()
+    head = int(sys_.state.odom.head)
+    odoms, infos_out = tr.published.get("odom", []), \
+        tr.published.get("odom_info", [])
+    lat = np.array([published_at[t] - injected_at[t]
+                    for t in injected_at if t in published_at]) * 1e3
+    est = np.stack([np.eye(4)] * len(odoms)).astype(np.float32)
+    for k, o in enumerate(odoms):
+        est[k, :3, 3] = o.position
+    ate = ate_rmse(est[2:], seq.poses[2:len(odoms)]) \
+        if len(odoms) > 2 else float("inf")
+    lost = sum(bool(m.lost) for m in infos_out[2:])
+    counts = ", ".join(f"{mod.__name__.rsplit('.', 1)[-1]}.{counter} {c} "
+                       f"({c / n:g}/frame)"
+                       for (mod, counter), c in launches.items())
+    print(f"node: {len(odoms)} odom / {len(infos_out)} odom_info published "
+          f"in {elapsed:.2f} s ({n / max(elapsed, 1e-9):.2f} fps), ATE "
+          f"{ate:.4f} m over frames 2-{n - 1}, lost {lost}, {counts}; "
+          f"enqueue-to-publish latency p50 {np.percentile(lat, 50):.1f} ms, "
+          f"p99 {np.percentile(lat, 99):.1f} ms, max {lat.max():.1f} ms "
+          f"(host clock, {len(lat)} frames); runtime stats "
+          + json.dumps(stats) + f"; wheel rows injected {rows}, odometry "
+          f"head {head}", flush=True)
+    map_gate(sys_.state.laser.submaps, seq.room, "node")
+    if not ate <= ATE_GATE:
+        fail(f"node: ATE {ate:.4f} m > {ATE_GATE}")
+    if lost:
+        fail(f"node: {lost} lost frames")
+    for (mod, counter), per_frame in expect.items():
+        if launches[mod, counter] != per_frame * n:
+            fail(f"node: {mod.__name__}.{counter} is "
+                 f"{launches[mod, counter]}, expected {per_frame * n}")
+    if not (stats["synced"] == stats["processed"] == n
+            and stats["dropped_unmatched"] == stats["dropped_overflow"] == 0
+            and len(odoms) == len(infos_out) == n):
+        fail(f"node: runtime stats {stats}, {len(odoms)} odom and "
+             f"{len(infos_out)} odom_info published, expected {n}")
+    if head != rows:
+        fail(f"node: odometry head {head}, {rows} wheel rows injected")
+
+    # checkpoint/resume: the node's System saved, restored into a fresh
+    # System of the same parameters, both stepped on the next frames
+    path = os.path.join(os.path.dirname(cache_dir), "node_ckpt", "system")
+    checkpoint.save_system(path, sys_)
+    fresh = node_adapter(seq, op, StaticTransport(*infos, frames=op.frames),
+                         False).system
+    checkpoint.restore_system(path, fresh)
+    outs = []
+    for s_ in (sys_, fresh):
+        feed = wheel_and_scan_feeder(s_, seq, seq.left, seq.right, row=rows)
+        for i in range(n, n + NODE_RESUMED):
+            feed(i)
+        outs.append(s_.drain_outputs())
+    differ = sorted({f for a, b in zip(*outs) for f in a._fields
+                     if not np.array_equal(np.asarray(getattr(a, f)),
+                                           np.asarray(getattr(b, f)))})
+    print(f"node: save_system -> restore_system -> {NODE_RESUMED} frames on "
+          f"both: outputs {'bit-equal' if not differ else f'differ in {differ}'}"
+          f", last pose gap "
+          f"{float(np.abs(outs[0][-1].pose - outs[1][-1].pose).max()):.3g}",
+          flush=True)
+    if differ or len(outs[0]) != NODE_RESUMED:
+        fail(f"node: the restored System's outputs differ in {differ}")
+
+    canvas = render_frame(sys_.state, seq.left[n + NODE_RESUMED - 1],
+                          seq.right[n + NODE_RESUMED - 1])
+    sub = render_submap(sys_.state)
+    print(f"node: render_frame {canvas.shape} {canvas.dtype}, render_submap "
+          f"{None if sub is None else (sub.shape, str(sub.dtype))}",
+          flush=True)
+    if canvas.shape != (HEIGHT, 2 * WIDTH, 3) or sub is None \
+            or sub.shape != (256, 256):
+        fail("node: the monitor's renders have the wrong shapes")
     return launches
 
 
@@ -2376,6 +2679,8 @@ def main():
     timed_phase("cull", phase_cull)
     timed_phase("backend", phase_backend, cached_textured_sequence,
                 cache_dir, ate_rmse, on_k1)
+    timed_phase("node", phase_node, cached_textured_sequence, cache_dir,
+                ate_rmse, on_k1)
     print("phase times (s): " + json.dumps(times), flush=True)
     tries = [n for _, n in TRACES]
     print(f"profiler traces: {len(TRACES)} kernel rows, traces per row "

@@ -453,3 +453,69 @@ def test_verify_loop_on_cuda_has_no_host_sync(seq):
     # |Ra - Rb|_F = 2 sqrt(2) sin(angle / 2)
     d = np.linalg.norm(rel_c[:3, :3] - rel_p[:3, :3]) / (2 * np.sqrt(2))
     assert 2 * np.arcsin(min(d, 1.0)) <= 1e-3
+
+
+def _small_system(seq, params, device="cuda"):
+    cam = seq.camera
+    s = System(params, device=device)
+    s.init(float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy),
+           float(cam.baseline), width=cam.width, height=cam.height)
+    return s
+
+
+def test_numpy_frames_enter_without_a_host_sync(seq):
+    """Host numpy images (as the native runtime's worker hands them over)
+    reach the device through pinned memory: no host sync, and the step
+    bit-equal to the one fed the same frames as CUDA tensors."""
+    _require_gpu()
+    params = {"Tracker/MaxFeatures": 60, "Tracker/MinDistance": 12,
+              "Tracker/QualityLevel": 0.05}
+    a, b = _small_system(seq, params), _small_system(seq, params)
+    for k in range(2):
+        b.input_primary_sensor_data(float(seq.stamps[k]),
+                                    torch.from_numpy(seq.left[k]).cuda(),
+                                    torch.from_numpy(seq.right[k]).cuda())
+    a.input_primary_sensor_data(float(seq.stamps[0]), seq.left[0],
+                                seq.right[0])
+    torch.cuda.synchronize()
+    with _NoHostSync():
+        a.input_primary_sensor_data(float(seq.stamps[1]),
+                                    np.ascontiguousarray(seq.left[1]),
+                                    np.ascontiguousarray(seq.right[1]))
+    for oa, ob in zip(a.drain_outputs(), b.drain_outputs()):
+        np.testing.assert_array_equal(oa.pose, ob.pose)
+        assert int(oa.n_inliers) == int(ob.n_inliers)
+
+
+def test_system_runtime_on_cuda_keeps_every_wheel_row(seq):
+    """SystemRuntime's worker steps a strategy-2 System on "cuda" while the
+    main thread pushes a wheel row every 2 ms: every frame comes out and
+    the odometry buffer's head counts every row pushed."""
+    _require_gpu()
+    import time
+
+    from visfs_tpu_torch.runtime import SystemRuntime
+
+    params = {"Tracker/MaxFeatures": 60, "Tracker/MinDistance": 12,
+              "Tracker/QualityLevel": 0.05, "System/SensorStrategy": 2}
+    s = _small_system(seq, params)
+    srt = SystemRuntime(s, capacity=8, slop_s=0.02)
+    srt.start()
+    n, pushed, outs = len(seq.stamps), 0, []
+    try:
+        for k in range(n):
+            srt.push_left(float(seq.stamps[k]), seq.left[k])
+            srt.push_right(float(seq.stamps[k]), seq.right[k])
+        deadline = time.time() + 120
+        while len(outs) < n and time.time() < deadline:
+            row = seq.wheel_odom[pushed % len(seq.wheel_odom)]
+            srt.push_odometry(float(row[0]), row[1:7])
+            pushed += 1
+            o = srt.output()
+            if o is not None:
+                outs.append(o)
+            time.sleep(0.002)
+    finally:
+        srt.stop()
+    assert len(outs) == n and srt.stats()["processed"] == n
+    assert int(s.state.odom.head) == pushed

@@ -1,5 +1,6 @@
-"""The port's operating-point literals (visfs_tpu_torch.operating_points)
-against the repo's configs/*.yaml, key for key, and the modules this
+"""The port's operating-point literals (visfs_tpu_torch.operating_points,
+the visfs:, node: and frames: blocks) against the repo's configs/*.yaml,
+key for key, and the modules this
 slice added imported without JAX, visfs_tpu or yaml (the card's machine may
 have none of them)."""
 
@@ -28,6 +29,33 @@ def test_literal_equals_the_config_file(name, literal):
     for k, v in block.items():
         assert type(lit[k]) is type(v) and lit[k] == v, k
     config_from_parameters(lit)  # every key known to the port's registry
+
+
+@pytest.mark.parametrize("name,block,literal", [
+    ("sim_mapping.yaml", "node", "SIM_MAPPING_NODE"),
+    ("sim_mapping.yaml", "frames", "SIM_MAPPING_FRAMES"),
+    ("sim_localization.yaml", "node", "SIM_LOCALIZATION_NODE"),
+    ("sim_localization.yaml", "frames", "SIM_LOCALIZATION_FRAMES")])
+def test_node_and_frames_literals_equal_the_config_file(name, block,
+                                                        literal):
+    yaml = pytest.importorskip("yaml")
+    with open(os.path.join(CONFIGS, name)) as f:
+        doc = yaml.safe_load(f).get(block) or {}
+    lit = getattr(ops, literal)
+    assert list(lit) == list(doc)
+    for k, v in doc.items():
+        assert type(lit[k]) is type(v) and lit[k] == v, k
+
+
+def test_operating_point_assembles_fresh_copies():
+    op = ops.operating_point("sim_mapping")
+    assert op.subscribe_wheel_odom and op.subscribe_laser_scan
+    op.node["base_line"] = 0.0
+    op.frames["camera_link"]["xyz"][2] = 0.0
+    again = ops.operating_point("sim_mapping")
+    assert again.node["base_line"] == 0.0502569
+    assert again.frames["camera_link"]["xyz"] == [0.0, 0.0, 0.68]
+    assert again.visfs == ops.SIM_MAPPING
 
 
 def test_mapping_point_is_strategy_3_with_clahe():

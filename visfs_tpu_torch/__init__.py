@@ -6,8 +6,9 @@ nor any module of ``visfs_tpu``; it keeps its own copy of the configuration
 registry (``config.py``).
 
 Layout mirrors the reference: ``config.py``, ``core/ ops/ ops/kernels/
-solver/ slam/ io/``, with the hand-written CUDA kernel sources under
-``csrc/``.  The public entry points run on "cuda" unless the caller passes
+solver/ slam/ io/ runtime/ utils/``, with the hand-written CUDA kernel
+sources under ``csrc/`` and the native sync runtime's C++ under
+``runtime/``.  The public entry points run on "cuda" unless the caller passes
 ``device="cpu"``; a CUDA tensor goes through the CUDA kernels, a CPU tensor
 through the kernels' plain PyTorch versions.
 """

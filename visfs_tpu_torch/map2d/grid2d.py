@@ -77,6 +77,13 @@ def cell_index(limits: MapLimits, points):
     return torch.stack([a, b], dim=-1)
 
 
+def cell_center(limits: MapLimits, index):
+    """Cell index [..., 2] -> world center (MapLimits::getCellCenter)."""
+    x = limits.max_x - limits.resolution * (index[..., 1] + 0.5)
+    y = limits.max_y - limits.resolution * (index[..., 0] + 0.5)
+    return torch.stack([x, y], dim=-1)
+
+
 def contains(limits: MapLimits, index):
     """MapLimits::contains — idx_a < num_x, idx_b < num_y (sic, flipped)."""
     return ((index[..., 0] >= 0) & (index[..., 1] >= 0)
@@ -126,6 +133,11 @@ def _cell_value_wrapped(grid: Grid2D, index):
     """Raw values as the reference's plain indexing reads them: negative
     entries wrapped once, then clamped into the grid."""
     return _cell_value(grid, _wrap(index, grid.limits))
+
+
+def is_known(grid: Grid2D, index):
+    return contains(grid.limits, index) & (
+        _cell_value(grid, index) != pv.UNKNOWN_VALUE)
 
 
 def correspondence_cost(grid: Grid2D, index, cost_table):

@@ -1,9 +1,11 @@
-"""The repo's deployment operating points as parameter dicts: the
-``visfs:`` blocks of configs/sim_mapping.yaml (full-fusion mapping,
-SensorStrategy 3 with CLAHE) and configs/sim_localization.yaml
-(stereo-only localization, FlowBack off), key for key, as literals so that
-they load where yaml is not installed.  tests/test_torch_operating_points.py
-holds them equal to the files."""
+"""The repo's deployment operating points as literals: the ``visfs:``
+blocks of configs/sim_mapping.yaml (full-fusion mapping, SensorStrategy 3
+with CLAHE) and configs/sim_localization.yaml (stereo-only localization,
+FlowBack off) as parameter dicts, and their ``node:`` and ``frames:``
+blocks (the adapter's options and the static frame tree), key for key, so
+that they load where yaml is not installed.  ``operating_point(name)``
+assembles an ``io.adapter.OperatingPoint`` from them.
+tests/test_torch_operating_points.py holds them equal to the files."""
 
 # configs/sim_mapping.yaml, visfs:
 SIM_MAPPING = {
@@ -51,3 +53,58 @@ SIM_LOCALIZATION = {
     "Estimator/PnPReprojError": 2,
     "Estimator/Force3DoF": True,
 }
+
+# configs/sim_mapping.yaml, node:
+SIM_MAPPING_NODE = {
+    "subscribe_wheel_odom": True,
+    "subscribe_laser_scan": True,
+    "approx_sync": True,
+    "queue_size": 10,
+    "camera_frame_id": "camera_link",
+    "laser_frame_id": "sick_laser_link",
+    "robot_frame_id": "base_link",
+    "odom_frame_id": "odom",
+    "publish_tf": False,
+    "base_line": 0.0502569,
+}
+
+# configs/sim_mapping.yaml, frames:
+SIM_MAPPING_FRAMES = {
+    "camera_link": {"parent": "base_link", "xyz": [0.0, 0.0, 0.68],
+                    "rpy": [0.0, 0.0, 0.0]},
+    "sick_laser_link": {"parent": "base_link",
+                        "xyz": [0.09375, 0.0, 0.0711],
+                        "rpy": [0.0, 0.0, 0.0]},
+}
+
+# configs/sim_localization.yaml, node: (it has no frames: block)
+SIM_LOCALIZATION_NODE = {
+    "subscribe_wheel_odom": False,
+    "subscribe_laser_scan": False,
+    "approx_sync": True,
+    "queue_size": 10,
+    "camera_frame_id": "camera_link",
+    "robot_frame_id": "base_link",
+    "odom_frame_id": "odom",
+    "publish_tf": False,
+    "base_line": 0.0502569,
+}
+SIM_LOCALIZATION_FRAMES = {}
+
+_POINTS = {
+    "sim_mapping": (SIM_MAPPING_NODE, SIM_MAPPING, SIM_MAPPING_FRAMES),
+    "sim_localization": (SIM_LOCALIZATION_NODE, SIM_LOCALIZATION,
+                         SIM_LOCALIZATION_FRAMES),
+}
+
+
+def operating_point(name: str):
+    """configs/<name>.yaml as an io.adapter.OperatingPoint (fresh copies of
+    the literals, so a caller may override keys)."""
+    import copy
+
+    from .io.adapter import OperatingPoint
+
+    node, visfs, frames = _POINTS[name]
+    return OperatingPoint(node=dict(node), visfs=dict(visfs),
+                          frames=copy.deepcopy(frames))

@@ -54,6 +54,20 @@ def add_odometry_batch(odom: OdomBuffer, rows) -> OdomBuffer:
         head=odom.head + torch.sum(valid).to(odom.head.dtype))
 
 
+def acc_motion_model(delta_t, direction, base6, v1_6, v2_6):
+    """Constant-acceleration xyzrpy prediction (accMotionModel,
+    Extrapolator.cpp:124-170).  Off every path, as in the reference: both
+    of its call sites there are commented out (Extrapolator.cpp:218,252).
+    direction True = second-last -> last; False integrates backwards with
+    negated v2/acceleration."""
+    acc = v2_6 - v1_6
+    half = 0.5 * delta_t
+    fwd = base6 + v1_6 * delta_t + acc * half
+    bwd = base6 - v2_6 * delta_t - acc * half
+    return torch.where(torch.as_tensor(direction, device=fwd.device), fwd,
+                       bwd)
+
+
 def predict_align_pose(buf: OdomBuffer, stamp, wheel_freq: int):
     """Aligned global wheel pose at ``stamp`` -> (pose6, valid), with the
     reference's timing sanity gates (Extrapolator.cpp:203-219)."""

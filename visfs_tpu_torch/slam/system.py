@@ -17,13 +17,26 @@ metres; with a laser scan at strategies >= 3), ``input_wheel_odometry``,
 ``input_wheel_odometry_batch``, ``output_odometry_info``, ``drain_outputs``,
 ``run_sequence``.  Scans and wheel rows arrive as numpy every frame; they
 are padded and masked on the host and copied through pinned memory with
-``non_blocking=True``, so feeding them does not wait for the device either.
+``non_blocking=True``, so feeding them does not wait for the device either;
+numpy images take the same way, tensors are used as they are.
+
+Threads: the native runtime's worker (``visfs_tpu_torch.runtime``) steps
+the System while a transport's thread pushes wheel rows.  A push only
+appends its host rows to a pending list under a short lock, so it never
+waits for the step in flight.  The step, under the state lock, applies the
+pending rows stamped at or before its frame, in push order, and leaves the
+later ones pending: it sees the rows a serial feed (rows up to a frame,
+then the frame) gives it, however far the pushing thread runs ahead, and
+rows for later frames do not push the ones it needs out of the 64-row
+ring.  Reading ``System.state`` applies every pending row, so it holds
+every row pushed so far; assigning it (a restore) drops them.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import threading
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -229,6 +242,14 @@ def _outputs_to_numpy(outs):
     return [FrameOutput(*[a[i] for a in fields]) for i in range(len(outs))]
 
 
+def _padded_odometry(rows: np.ndarray) -> np.ndarray:
+    """Wheel rows [K, 14] padded with masked rows to a multiple of 16, so
+    the batch's shape stays stable from frame to frame."""
+    out = np.zeros((-(-len(rows) // 16) * 16, 14), np.float32)
+    out[:len(rows)] = rows
+    return out
+
+
 class System:
     """Host-side engine owning the device state (reference System.h API).
 
@@ -264,12 +285,51 @@ class System:
         self._scan_capacity = scan_capacity
         self._submap_extent = submap_extent_cells
         self.camera: Optional[StereoCamera] = None
-        self.state: Optional[VOState] = None
+        self._state: Optional[VOState] = None
         self._results = collections.deque()
+        # held by the step and by every read or write of ``state``
+        self._state_lock = threading.Lock()
+        # host wheel rows [K, 14] not yet in the state, in push order
+        self._pending_odom = []
+        self._pending_lock = threading.Lock()
         # profile_stages: the four stages with a device synchronisation
         # after each, FrameOutput's time_* fields from the host clock (a
         # diagnostic; the fused step waits for nothing and leaves them 0).
         self.profile_stages = profile_stages
+
+    @property
+    def state(self) -> Optional[VOState]:
+        """The device state, with every wheel row pushed so far applied."""
+        with self._state_lock:
+            self._apply_pending_odometry()
+            return self._state
+
+    @state.setter
+    def state(self, value: Optional[VOState]):
+        with self._state_lock:
+            with self._pending_lock:
+                self._pending_odom = []
+            self._state = value
+
+    def _apply_pending_odometry(self, upto: Optional[np.float32] = None):
+        """Push the pending wheel rows stamped at or before ``upto`` (every
+        one with None) into the state in one batch, in push order; the
+        later ones stay pending, ahead of the rows pushed meanwhile.  The
+        caller holds the state lock."""
+        with self._pending_lock:
+            pending, self._pending_odom = self._pending_odom, []
+        if not pending:
+            return
+        rows = np.concatenate(pending)
+        if upto is not None:
+            now = rows[:, 0] <= upto
+            if not now.all():
+                with self._pending_lock:
+                    self._pending_odom.insert(0, rows[~now])
+                rows = rows[now]
+        if len(rows):
+            self._state = self._state._replace(odom=extr.add_odometry_batch(
+                self._state.odom, self._to_device(_padded_odometry(rows))))
 
     def init(self, fx, fy, cx, cy, baseline, *, width, height, fxr=None,
              fyr=None, cxr=None, cyr=None, transform_camera_to_robot=None,
@@ -307,8 +367,12 @@ class System:
         self._results.clear()
 
     def _as_image(self, img):
-        return torch.as_tensor(img, dtype=torch.float32,
-                               device=self.device).contiguous()
+        """A tensor as it is (on the System's device); a host array through
+        pinned memory without waiting for the device."""
+        if isinstance(img, torch.Tensor):
+            return torch.as_tensor(img, dtype=torch.float32,
+                                   device=self.device).contiguous()
+        return self._to_device(np.ascontiguousarray(img, np.float32))
 
     def _to_device(self, a: np.ndarray):
         """A host array on the device: pinned and copied without waiting
@@ -342,7 +406,7 @@ class System:
         [K, 3] laser-frame scan and [K] per-point time offsets for the
         de-skew, <= 0 with the newest point at 0); the result is queued on
         the device."""
-        if self.state is None:
+        if self._state is None:
             raise RuntimeError("call init() first")
         stamp_t = torch.full((), float(stamp), dtype=torch.float32,
                              device=self.device)
@@ -351,13 +415,15 @@ class System:
             pts, msk, tms = self._scan_inputs(scan, scan_times)
             scan_args = dict(scan_points=pts, scan_mask=msk, scan_times=tms)
         args = (self._as_image(left), self._as_image(right), stamp_t)
-        if self.profile_stages:
-            out = self._step_profiled(*args, **scan_args)
-        else:
-            self.state, out = vo_step(self.state, *args, self.camera,
-                                      self.settings, self.lk_params,
-                                      self._cfg_hash, **scan_args)
-        self._results.append(out)
+        with self._state_lock:
+            self._apply_pending_odometry(upto=np.float32(stamp))
+            if self.profile_stages:
+                out = self._step_profiled(*args, **scan_args)
+            else:
+                self._state, out = vo_step(self._state, *args, self.camera,
+                                           self.settings, self.lk_params,
+                                           self._cfg_hash, **scan_args)
+            self._results.append(out)
 
     def _step_profiled(self, left, right, stamp, scan_points=None,
                        scan_mask=None, scan_times=None):
@@ -368,16 +434,16 @@ class System:
         cam, cfg = self.camera, self.settings
         timer = StageTimer()
         timer.elapsed(sync=stamp)  # the earlier frames' work is not timed
-        ts = track_stage(self.state, left, right, stamp, cam, cfg,
+        ts = track_stage(self._state, left, right, stamp, cam, cfg,
                          self.lk_params, self._cfg_hash)
         t_track = timer.elapsed(sync=stamp)
-        problem, ctx = prepare_stage(self.state, ts, stamp, cam, cfg,
+        problem, ctx = prepare_stage(self._state, ts, stamp, cam, cfg,
                                      scan_points, scan_mask, scan_times)
         t_prepare = timer.elapsed(sync=stamp)
         res_ba = ba_stage(problem, cfg)
         t_ba = timer.elapsed(sync=stamp)
-        self.state, out = finalize_stage(self.state, ts, ctx, res_ba, stamp,
-                                         cam, cfg)
+        self._state, out = finalize_stage(self._state, ts, ctx, res_ba,
+                                          stamp, cam, cfg)
         t_estimation = t_prepare + t_ba + timer.elapsed(sync=stamp)
         return out._replace(time_tracking=np.float32(t_track),
                             time_estimation=np.float32(t_estimation),
@@ -391,24 +457,25 @@ class System:
             None if velocity6 is None else np.reshape(velocity6, (1, 6)))
 
     def input_wheel_odometry_batch(self, stamps, pose6, velocity6=None):
-        """Push K samples ([K], [K, 6], optional [K, 6]) in one copy and a
-        few device ops, equivalent to K input_wheel_odometry calls in order.
-        The batch is padded to a multiple of 16 masked rows so its shape
-        stays stable from frame to frame."""
-        if self.state is None:
+        """Push K samples ([K], [K, 6], optional [K, 6]), equivalent to K
+        input_wheel_odometry calls in order.  It waits for no step: the rows
+        reach the state, in one copy and a few device ops, at the first
+        step of a frame stamped at or after them or at a read of
+        ``state``."""
+        if self._state is None:
             raise RuntimeError("call init() first")
         stamps = np.asarray(stamps, np.float32).reshape(-1)
         K = len(stamps)
         if K == 0:
             return
-        rows = np.zeros((-(-K // 16) * 16, 14), np.float32)
-        rows[:K, 0] = stamps
-        rows[:K, 1:7] = np.asarray(pose6, np.float32).reshape(K, 6)
+        rows = np.zeros((K, 14), np.float32)
+        rows[:, 0] = stamps
+        rows[:, 1:7] = np.asarray(pose6, np.float32).reshape(K, 6)
         if velocity6 is not None:
-            rows[:K, 7:13] = np.asarray(velocity6, np.float32).reshape(K, 6)
-        rows[:K, 13] = 1.0
-        self.state = self.state._replace(odom=extr.add_odometry_batch(
-            self.state.odom, self._to_device(rows)))
+            rows[:, 7:13] = np.asarray(velocity6, np.float32).reshape(K, 6)
+        rows[:, 13] = 1.0
+        with self._pending_lock:
+            self._pending_odom.append(rows)
 
     def output_odometry_info(self):
         """Pop the oldest finished frame result (numpy fields), or None."""
@@ -421,16 +488,19 @@ class System:
         """Appearance snapshot of the latest processed frame's features for
         loop verification (slam/mapping.py ``verify_loop``), on the
         System's device."""
-        if self.state is None:
+        state = self.state
+        if state is None:
             raise RuntimeError("call init() first")
-        return snapshot_features(self.state.features, self.state.prev_left,
+        return snapshot_features(state.features, state.prev_left,
                                  self.camera, max_kp=max_kp,
                                  patch_size=patch_size, scales=scales)
 
     def drain_outputs(self):
-        """Fetch every queued frame result."""
-        outs = list(self._results)
-        self._results.clear()
+        """Fetch every queued frame result (popped one by one, so a result
+        the worker appends meanwhile is kept for the next call)."""
+        outs = []
+        while self._results:
+            outs.append(self._results.popleft())
         return _outputs_to_numpy(outs)
 
     def run_sequence(self, stamps, lefts, rights, wheel_odom=None,

@@ -83,7 +83,8 @@ class StageTimer:
 @contextlib.contextmanager
 def device_trace(log_dir: str):
     """A torch.profiler trace of the block (CPU, and CUDA where there is a
-    card), written to log_dir as a Chrome trace."""
+    card), written to log_dir as a Chrome trace; yields the profiler, whose
+    ``events()`` the caller may read after the block."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -91,8 +92,8 @@ def device_trace(log_dir: str):
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities,
                  on_trace_ready=torch.profiler.tensorboard_trace_handler(
-                     log_dir)):
-        yield
+                     log_dir)) as prof:
+        yield prof
 
 
 def memory_usage_mb() -> float:
