@@ -52,21 +52,21 @@ Phases (each prints its lines; any failure exits non-zero without the final
                 stage split; then (profile) frames 2-11 of a fresh System
                 with profile_stages=True, each step as four synced stages,
                 the medians of the time_* fields printed, not gated;
-  6. xcorr    — the loop's first 80 frames with lk_params backend="jnp",
+  6. xcorr    — the loop's first 60 frames with lk_params backend="jnp",
                 iter_mode="xcorr" (the jnp level in correlation form): the
                 same gates with 2 launches of K2's pyramid entry, 0 of its
                 one-level entry and 0 of either K1 entry per frame;
   6b. fleet   — bench phase 3 (bench.py:160-187): FleetSystem(bench
-                parameters, 8 streams) on "cuda", 40 frames a stream from
+                parameters, 8 streams) on "cuda", 24 frames a stream from
                 offsets (k * 7) mod 260 of the main loop, frames 0-1 then
-                a timed loop over 2-39: exactly 2 K1 pyramid launches a
+                a timed loop over 2-23: exactly 2 K1 pyramid launches a
                 fleet frame for all 8 streams and 0 of every other entry,
                 0 host syncs, each stream's ATE <= 0.15 m and 0 lost; a
                 second pass bit-equal; streams 0 and 7 against Systems of
                 seeds 0 and 7, each frame stepped from the fleet's stream
                 state (1e-3 m, 1e-3 rad, identical lost flags); printed:
                 stream 0's System free running (the vmapped reductions
-                reassociate, and 40 frames amplify it), the aggregate fps
+                reassociate, and 24 frames amplify it), the aggregate fps
                 and its ratio to main's, kernels and kernel time a fleet
                 frame (profiler) beside one stream's;
   7. s3       — the reference bench's phase 4 (bench.py:187-262) at full
@@ -180,6 +180,27 @@ Phases (each prints its lines; any failure exits non-zero without the final
                 last_latency_ms printed.  Phase backend also saves its
                 session's back-end (save_mapping), restores it into a fresh
                 MappingBackend and solves both graphs once: bit-equal.
+ 15. dp       — the port's multi-card entry (visfs_tpu_torch.multichip, the
+                twin of __graft_entry__.dryrun_multichip) at min(4, cards)
+                ranks over NCCL, one card a rank, spawned as `python -m
+                visfs_tpu_torch.multichip --world N` spawns them, at
+                640x480: dp_fleet_step at strategy 0 (the bench loop) and
+                at 3 (configs/sim_mapping.yaml's block on phase s3's
+                sequence, scans and wheel rows), DP_FRAMES frames a stream,
+                each row bit-equal to a single System of its seed on the
+                same card, the gathered outputs identical on every rank,
+                exactly 2 launches of K1's pyramid entry a timed frame and 0
+                of every other entry, 0 host syncs, ATE <= 0.15 m and 0
+                lost, phase s3's map gate at 3; FleetMapping over phase
+                backend's scene, DP_ROBOT_FRAMES frames a robot, held
+                against MultiRobotMapping (keyframes, nodes, edges and
+                closures identical, poses after optimize within 1e-4 m and
+                rad, >= 1 cross-robot closure with 2 ranks or more, 0 host
+                syncs in one verify_loop and one solve); the dryrun's
+                landmark-sharded BA and edge-sharded pose graph against the
+                one-rank solve (1e-5, landmarks 2.1e-4 m); the aggregate
+                fps, the gather's device ms a frame and the close-and-solve
+                seconds printed.  Its K1 launches join the kernels line's.
 Each phase's seconds are printed, and the profiler traces each kernel row
 took (a trace may come back without its device records).  The kernels JSON
 line, the nvidia-smi line and the final {"ok": true, "device": ...} line
@@ -244,8 +265,9 @@ XCORR = dict(backend="jnp", iter_mode="xcorr")
 CULL = {"Tracker/CullByFundationMatrix": True,
         "Tracker/FundationPixelError": 2.0}  # tests/test_fundamental.py:80
 # phase xcorr's depth (the main loop's first frames): 80 since phase fleet
-# joined (with it at 120 the whole script took 948.5 s of its 1,200 s)
-XCORR_FRAMES = 80
+# joined (with it at 120 the whole script took 948.5 s of its 1,200 s), 60
+# since phase dp joined
+XCORR_FRAMES = 60
 # phases mapping, loc_cull and rgbd: 80 since phase backend joined (with
 # them at 120 the whole script took 865 s of its 1,200 s on an H100)
 MODE_FRAMES = 80
@@ -253,26 +275,29 @@ CLAHE_BOUND = 1e-3  # levels, clahe on "cuda" against "cpu"
 # phase small, strategy 5: the one-ulp nudged "cpu" steps tried on a frame
 # whose lost flags differ
 WITNESS_SEEDS = 16
-# bench.py phase 3 (bench.py:160-187): B streams of FLEET_FRAMES frames, the
-# streams starting at (k * 7) mod (frames - FLEET_FRAMES) of the loop
+# bench.py phase 3 (bench.py:160-187): B streams, the streams starting at
+# (k * 7) mod (frames - 40) of the loop; FLEET_FRAMES frames a stream, 24
+# of bench.py's 40 since phase dp joined (with 40 and phase dp the script
+# would outrun its 1,200 s on a slower host)
 FLEET_B = 8
-FLEET_FRAMES = 40
+BENCH_FLEET_FRAMES = 40
+FLEET_FRAMES = 24
 FLEET_COMPARED = (0, 7)  # the streams held against single Systems
 # each timed loop's fps by label, for phase fleet's ratio to main's
 LOOP_FPS = {}
+# phase dp: frames a stream in its sections a and b, frames a robot in c
+# (at 24 and 60 the phase took 132-141 s; on one card section c needs no
+# cross-robot closure, and 30 frames still give it loop candidates)
+DP_FRAMES = 12
+DP_ROBOT_FRAMES = 30
 
 
 def bench_params(width):
-    """The simMapping operating point of the reference bench (bench.py)."""
-    return {
-        "Tracker/MaxFeatures": 120,
-        "Tracker/MinDistance": max(12, 40 * width // 640),
-        "Tracker/QualityLevel": 0.05,
-        "LocalMap/MapSize": 5,
-        "Optimizer/Iterations": 20,
-        "Estimator/Force3DoF": True,
-        "Estimator/ToleranceTranslation": 0.40,
-    }
+    """The simMapping operating point of the reference bench (bench.py),
+    as the multi-card entry has it."""
+    from visfs_tpu_torch.multichip import bench_params as params
+
+    return params(width)
 
 
 def fail(msg):
@@ -863,7 +888,7 @@ def xcorr_records(levels, max_level, win):
 
 def fleet_offsets(n_frames):
     """bench.py:171's stream offsets: (k * 7) mod (frames - 40)."""
-    return [(k * 7) % max(n_frames - FLEET_FRAMES, 1)
+    return [(k * 7) % max(n_frames - BENCH_FLEET_FRAMES, 1)
             for k in range(FLEET_B)]
 
 
@@ -1229,23 +1254,23 @@ def phase_profile(seq, System, frames=10):
 def phase_fleet(seq, System, expect, ate_rmse):
     """Bench phase 3 on the card: FleetSystem(bench parameters, 8 streams)
     over FLEET_FRAMES frames a stream from bench.py's offsets, frames 0-1
-    then a timed loop over 2-39.  expect: {(kernel module, launch counter):
-    launches per fleet frame}, every count set to 0 just before the loop
-    and read just after it.  Gates: the launches, 0 host syncs, each
+    then a timed loop over the rest.  expect: {(kernel module, launch
+    counter): launches per fleet frame}, every count set to 0 just before
+    the loop and read just after it.  Gates: the launches, 0 host syncs, each
     stream's ATE <= 0.15 m (against its ground truth from its own start)
-    and 0 lost over frames 2-39; a second pass bit-equal to the timed one;
+    and 0 lost over frames 2..; a second pass bit-equal to the timed one;
     streams 0 and 7 against single Systems of seeds 0 and 7 on "cuda", each
     frame stepped from the fleet's stream state (per frame 1e-3 m, 1e-3
     rad, identical lost flags).  Printed: stream 0's System free running
     over the same frames, the aggregate fps and its ratio to main's, and
-    the kernels and kernel time a frame (profiler, frames 40-41) of the
-    fleet and of that free-running System."""
+    the kernels and kernel time a frame (profiler, the next two frames) of
+    the fleet and of that free-running System."""
     import torch
 
     from visfs_tpu_torch.slam.fleet import FleetSystem, stream_state
 
     offs = fleet_offsets(len(seq.left))
-    n = FLEET_FRAMES + 2  # and the profiled frames 40-41
+    n = FLEET_FRAMES + 2  # and the two profiled frames
     lefts = [torch.stack([torch.as_tensor(seq.left[o + i], device="cuda")
                           for o in offs]) for i in range(n)]
     rights = [torch.stack([torch.as_tensor(seq.right[o + i], device="cuda")
@@ -1441,57 +1466,19 @@ def device_ms_per_call(fn, reps=10):
 
 def map_gate(submaps, room, label):
     """The map's gates on the matching grid (tests/test_laser_fusion.py:
-    135-165): probability > 0.5 within a 3x3 neighbourhood of every wall
+    135-165; visfs_tpu_torch.multichip.map_probes at the scene's own
+    start): probability > 0.5 within a 3x3 neighbourhood of every wall
     probe inside the grid, < 0.5 at the free-space probes.  The wall probes
     are the test's three and the four walls level with the matching
     submap's origin; the free-space probes the test's (0.5, 0) and that
     origin.  At least one wall probe must lie inside."""
-    import torch
+    from visfs_tpu_torch.multichip import map_probes
 
-    from visfs_tpu_torch.map2d import grid2d
-    from visfs_tpu_torch.map2d import probability_values as pv
-    from visfs_tpu_torch.map2d.submap import matching_grid
-
-    if not bool(submaps.slot_valid.any()):
-        fail(f"{label}: no live submap slot")
-    grid = matching_grid(submaps)
-    dev = grid.cells.device
-    ct = pv.cost_table(dev)
-    first = bool(submaps.slot_valid[0])
-    ox, oy = submaps.origin[0 if first else 1, :2].tolist()
-    x0, x1, y0, y1 = room
-    walls = dict.fromkeys([(x0, 0.0), (0.0, y0), (0.0, y1),
-                           (x0, oy), (x1, oy), (ox, y0), (ox, y1)])
-    nbhd = torch.tensor([(da, db) for da in (-1, 0, 1) for db in (-1, 0, 1)],
-                        device=dev)
-    rows, bad = [], []
-    for pt in walls:
-        idx = grid2d.cell_index(grid.limits,
-                                torch.tensor(pt, dtype=torch.float32,
-                                             device=dev))
-        if not bool(grid2d.contains(grid.limits, idx)):
-            continue
-        best = float(grid2d.probability(grid, idx + nbhd, ct).max())
-        rows.append(f"wall {pt[0]:.2f},{pt[1]:.2f} {best:.3f}")
-        if not best > 0.5:
-            bad.append(rows[-1])
-    n_walls = len(rows)
-    for pt in dict.fromkeys([(0.5, 0.0), (ox, oy)]):
-        idx = grid2d.cell_index(grid.limits,
-                                torch.tensor(pt, dtype=torch.float32,
-                                             device=dev))
-        p = float(grid2d.probability(grid, idx, ct))
-        inside = bool(grid2d.contains(grid.limits, idx))
-        rows.append(f"free {pt[0]:.2f},{pt[1]:.2f} {p:.3f}"
-                    + ("" if inside else " (outside)"))
-        if not p < 0.5:
-            bad.append(rows[-1])
+    rows, bad = map_probes(submaps, room)
     print(f"{label} map: slots {submaps.slot_valid.tolist()}, range data "
           f"{submaps.num_range_data.tolist()}, finished "
           f"{submaps.finished.tolist()}; matching grid probes: "
           + "; ".join(rows), flush=True)
-    if n_walls == 0:
-        fail(f"{label}: no wall probe inside the matching grid")
     if bad:
         fail(f"{label}: map probes failed: {bad}")
 
@@ -1884,13 +1871,11 @@ def keyframe_error(poses, graph, seq):
 
 
 def rel_gap(a, b):
-    """(max |dt| m, rotation angle rad) between two 4x4 transforms; the
-    angle from |Ra - Rb|_F = 2 sqrt(2) sin(angle / 2), which holds its
-    precision near 0 where the trace's arccos does not."""
-    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
-    d = np.linalg.norm(a[:3, :3] - b[:3, :3]) / (2.0 * np.sqrt(2.0))
-    return (float(np.abs(a[:3, 3] - b[:3, 3]).max()),
-            float(2.0 * np.arcsin(min(d, 1.0))))
+    """(max |dt| m, rotation angle rad) between two 4x4 transforms
+    (visfs_tpu_torch.multichip's)."""
+    from visfs_tpu_torch.multichip import rel_gap as gap
+
+    return gap(a, b)
 
 
 def phase_backend(cached_textured_sequence, cache_dir, ate_rmse, expect):
@@ -2092,6 +2077,33 @@ def phase_backend(cached_textured_sequence, cache_dir, ate_rmse, expect):
         fail(f"backend: optimize_graph cuda vs cpu {g_dt:.3g} m, "
              f"{g_dang:.3g} rad")
     return launches
+
+
+def phase_dp(cache_dir):
+    """The multi-card entry at min(4, cards) ranks over NCCL (its gates
+    are the phase's); returns the K1 pyramid launches of its ranks'
+    paths."""
+    import torch
+
+    from visfs_tpu_torch import multichip
+
+    world = min(4, torch.cuda.device_count())
+    report = multichip.run(world, "cuda", WIDTH, HEIGHT, frames=DP_FRAMES,
+                           robot_frames=DP_ROBOT_FRAMES,
+                           cache_dir=cache_dir)
+    a, b, c = (report["sections"][k] for k in "abc")
+    print(f"dp: world {world} over {report['backend']} on "
+          f"{report['cards']} in {report['seconds']:.1f} s; aggregate fps "
+          f"a {a['fps_aggregate']:.2f}, b {b['fps_aggregate']:.2f}; gather "
+          f"device ms a frame a {a['gather_device_ms_per_frame']:.3f}, b "
+          f"{b['gather_device_ms_per_frame']:.3f}; close-and-solve "
+          f"{c['close_and_solve_s']:.2f} s; K1 pyramid launches "
+          f"{report['k1_pyramid_launches']}", flush=True)
+    failed = [f"{name}: {gate}" for name, sec in report["sections"].items()
+              for gate, ok in sec["gates"].items() if not ok]
+    if failed:
+        fail(f"dp: {failed}")
+    return report["k1_pyramid_launches"]
 
 
 def mapping_resumed(checkpoint, mapping, backend, g0, cache_dir):
@@ -2681,6 +2693,7 @@ def main():
                 cache_dir, ate_rmse, on_k1)
     timed_phase("node", phase_node, cached_textured_sequence, cache_dir,
                 ate_rmse, on_k1)
+    dp_launches = timed_phase("dp", phase_dp, cache_dir)
     print("phase times (s): " + json.dumps(times), flush=True)
     tries = [n for _, n in TRACES]
     print(f"profiler traces: {len(TRACES)} kernel rows, traces per row "
@@ -2692,7 +2705,7 @@ def main():
     print(json.dumps({"kernels": [
         kernel_entry("lk_pyramid", "visfs_tpu_torch/csrc/lk_level.cu",
                      "visfs_tpu/ops/pallas/lk_kernel.py:138",
-                     main_launches[k1_pyr], k1_tot),
+                     main_launches[k1_pyr] + dp_launches, k1_tot),
         kernel_entry("lk_xcorr_pyramid", "visfs_tpu_torch/csrc/lk_xcorr.cu",
                      "visfs_tpu/ops/pallas/lk_xcorr.py:96",
                      xcorr_launches[k2_pyr], k2_tot)]}), flush=True)

@@ -1,7 +1,8 @@
-"""Worker of tests/test_torch_distributed.py and tests/test_torch_fleet_dp.py:
-one rank of a gloo process group on the CPU running visfs_tpu_torch's
-sharded solvers (``worker``) or its fleet across ranks (``fleet_worker``:
-dp_fleet_step and FleetMapping).
+"""Worker of tests/test_torch_distributed.py, tests/test_torch_fleet_dp.py
+and tests/test_torch_multichip.py: one rank of a gloo process group on the
+CPU running visfs_tpu_torch's sharded solvers (``worker``), its fleet
+across ranks (``fleet_worker``: dp_fleet_step and FleetMapping) or one
+dp_fleet_step from given states (``tiny_dp_worker``).
 
 Imports torch and visfs_tpu_torch only (no JAX), so a spawned rank starts
 in a couple of seconds.  Problems arrive as dicts of numpy arrays and
@@ -162,6 +163,47 @@ def fleet_worker(rank, world, port, dp_seq, map_seq, queue):
                    mapping=fleet_mapping_run(dist.group.WORLD, map_seq))
         dist.destroy_process_group()
         queue.put((rank, out))
+    except Exception as e:  # noqa: BLE001 — reported to the test
+        import traceback
+
+        queue.put((rank, f"{type(e).__name__}: {e}\n"
+                         f"{traceback.format_exc()}"))
+
+
+def tiny_dp_worker(rank, world, port, setup, frames, queue):
+    """dp_fleet_step on two gloo ranks from the JAX dryrun's tiny setup:
+    ``setup`` holds its parameters, camera and the starting state (the
+    port's numpy state), ``frames`` per frame the [B, H, W] images and the
+    stamps.  Returns this rank's new state's pose and the gathered
+    outputs of every frame, as numpy."""
+    torch.set_num_threads(1)
+    try:
+        from visfs_tpu_torch.core.camera import make_stereo_camera
+        from visfs_tpu_torch.config import config_from_parameters
+        from visfs_tpu_torch.ops.lk import LKParams
+        from visfs_tpu_torch.slam.state import state_from_numpy
+        from visfs_tpu_torch.slam.system import (_build_settings,
+                                                 build_cfg_hash)
+
+        initialize_multihost(f"tcp://127.0.0.1:{port}", world, rank,
+                             backend="gloo", timeout_s=60.0)
+        import torch.distributed as dist
+
+        cfg = config_from_parameters(setup["params"])
+        cam = make_stereo_camera(**setup["camera"], device="cpu")
+        lk = LKParams(**setup["lk"])
+        state = state_from_numpy(setup["state"], "cpu")
+        outs = []
+        for left, right, stamp in frames:
+            state, out = dp_fleet_step(
+                fleet_mesh(dist.group.WORLD), state,
+                torch.from_numpy(left[rank]), torch.from_numpy(right[rank]),
+                torch.tensor(stamp[rank], dtype=torch.float32), cam,
+                _build_settings(cfg), lk, build_cfg_hash(cfg))
+            outs.append({f: v.numpy() for f, v in out._asdict().items()
+                         if torch.is_tensor(v)})
+        dist.destroy_process_group()
+        queue.put((rank, outs))
     except Exception as e:  # noqa: BLE001 — reported to the test
         import traceback
 

@@ -519,3 +519,64 @@ def test_system_runtime_on_cuda_keeps_every_wheel_row(seq):
         srt.stop()
     assert len(outs) == n and srt.stats()["processed"] == n
     assert int(s.state.odom.head) == pushed
+
+
+# --- more than one card ------------------------------------------------------
+
+def _require_gpus(n):
+    _require_gpu()
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} NVIDIA GPUs, {torch.cuda.device_count()} "
+                    "visible")
+
+
+def test_k1_pyramid_on_a_second_card_equals_the_first(bench_pair):
+    """K1's pyramid entry on tensors of cuda:1 while cuda:0 is the current
+    device launches on cuda:1 (the wrapper's device guard) and equals the
+    same call on cuda:0 bit for bit."""
+    _require_gpus(2)
+    pyr0, pyr1, points = bench_pair
+    p, n = LKParams(), 240
+    rng = np.random.default_rng(n)
+    pts = points[:n].contiguous()
+    init = pts + torch.from_numpy(rng.normal(0, 1.0, (n, 2)).astype(
+        np.float32)).to(pts.device)
+    valid = torch.from_numpy(rng.uniform(size=n) > 0.1).to(pts.device)
+    kw = dict(win=p.win_size, max_level=p.max_level,
+              iterations=p.iterations, eps=p.eps,
+              min_eig_threshold=p.min_eig_threshold, bidirectional=True,
+              fb_threshold=1.5)
+
+    def on(dev, pyr):
+        return pyr._replace(**{f: tuple(t.to(dev) for t in getattr(pyr, f))
+                               for f in ("levels", "gx", "gy")})
+
+    with torch.cuda.device(0):
+        want = k1.lk_pyramid(on("cuda:0", pyr0), on("cuda:0", pyr1),
+                             pts.to("cuda:0"), init.to("cuda:0"),
+                             valid.to("cuda:0"), **kw)
+        before = k1.PYR_LAUNCHES
+        got = k1.lk_pyramid(on("cuda:1", pyr0), on("cuda:1", pyr1),
+                            pts.to("cuda:1"), init.to("cuda:1"),
+                            valid.to("cuda:1"), **kw)
+        assert k1.PYR_LAUNCHES == before + 1
+    for dev in (0, 1):
+        torch.cuda.synchronize(dev)
+    for a, b in zip(got, want):
+        assert a.device == torch.device("cuda", 1)
+        assert torch.equal(a.cpu(), b.cpu())
+
+
+def test_multichip_entry_over_nccl_holds_its_gates():
+    """The multi-card entry at two ranks over NCCL, one card each (set
+    before any state), at a small size: dp_fleet_step's rows bit-equal to
+    single Systems at strategies 0 and 3, FleetMapping against
+    MultiRobotMapping, the sharded solvers; every gate of its report
+    holds."""
+    _require_gpus(2)
+    from visfs_tpu_torch import multichip
+
+    report = multichip.run(2, "cuda", 160, 120, frames=4, robot_frames=8)
+    failed = [f"{name}: {gate}" for name, sec in report["sections"].items()
+              for gate, ok in sec["gates"].items() if not ok]
+    assert report["ok"] and not failed, failed

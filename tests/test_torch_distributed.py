@@ -10,7 +10,8 @@ virtual mesh.
     its landmarks padded to 64 (a multiple of both meshes).
 
 Tolerances: poses and the graph's q and t within 1e-5 of the one-process
-port and 1e-4 of the JAX package; identical outlier sets and ok.  The
+port (the graph's q, t and chi2 bit-equal to it) and 1e-4 of the JAX
+package; identical outlier sets and ok.  The
 landmarks within 5e-4 m of both: back-substitution (dx_l = V^-1 (g_l -
 W dx_p)) carries the pose step's last-ulp differences, which the shards'
 summation order sets, into the points 3-8 m deep amplified ~100x (2.1e-4
@@ -126,6 +127,15 @@ def test_ranks_agree(runs):
 def test_sharded_matches_one_process(runs, key):
     ranks, single, _ = runs
     np.testing.assert_allclose(ranks[0][key], single[key], atol=1e-5)
+
+
+@pytest.mark.parametrize("key", ("graph_q", "graph_t", "graph_chi2"))
+def test_sharded_pose_graph_bit_equal_to_one_process(runs, key):
+    """The ranks add the gathered per-edge terms in the one-process solve's
+    order, so the sharded pose graph (closures give poses 3 edges) equals
+    the one-process solve bit for bit."""
+    ranks, single, _ = runs
+    np.testing.assert_array_equal(ranks[0][key], single[key])
 
 
 @pytest.mark.parametrize("key", FLOATS)

@@ -552,18 +552,26 @@ def generate_textured_sequence(
 _SIM_CACHE_TAG = "visfs_tpu_torch-sim-3"  # 3: depth (and the VGA rounding)
 
 
-def cached_textured_sequence(cache_dir=None, **kwargs) -> SimSequence:
-    """generate_textured_sequence quantized to 8 bits (as a camera emits),
-    with an npz cache under ``cache_dir`` (default $VISFS_SIM_CACHE or the
-    temp dir).  ``device`` (default "cuda") selects where the ray cast runs
-    and the camera lives, and is not part of the cache key."""
-    device = kwargs.pop("device", "cuda")
+def sim_cache_file(cache_dir=None, **kwargs) -> str:
+    """The npz file of cached_textured_sequence's cache (under
+    ``cache_dir``, default $VISFS_SIM_CACHE or the temp dir) that holds
+    these arguments' sequence (``device`` aside); it need not exist yet."""
+    kwargs.pop("device", None)
     key = json.dumps({**kwargs, "_tag": _SIM_CACHE_TAG}, sort_keys=True)
     digest = hashlib.sha256(key.encode()).hexdigest()[:20]
     cache_dir = cache_dir or os.environ.get(
         "VISFS_SIM_CACHE", os.path.join(tempfile.gettempdir(),
                                         "visfs_sim_cache"))
-    path = os.path.join(cache_dir, f"torch_seq_{digest}.npz")
+    return os.path.join(cache_dir, f"torch_seq_{digest}.npz")
+
+
+def cached_textured_sequence(cache_dir=None, **kwargs) -> SimSequence:
+    """generate_textured_sequence quantized to 8 bits (as a camera emits),
+    with an npz cache (sim_cache_file).  ``device`` (default "cuda")
+    selects where the ray cast runs and the camera lives, and is not part
+    of the cache key."""
+    device = kwargs.pop("device", "cuda")
+    path = sim_cache_file(cache_dir, **kwargs)
     cam = default_camera(kwargs.get("width", 320), kwargs.get("height", 240),
                          device)
     if os.path.exists(path):
@@ -579,7 +587,7 @@ def cached_textured_sequence(cache_dir=None, **kwargs) -> SimSequence:
     seq = generate_textured_sequence(device=device, **kwargs)
     left = np.clip(seq.left, 0, 255).astype(np.uint8)
     right = np.clip(seq.right, 0, 255).astype(np.uint8)
-    os.makedirs(cache_dir, exist_ok=True)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = path + ".tmp.npz"
     extra = {} if seq.laser_scans is None else dict(
         laser_scans=seq.laser_scans, room=np.asarray(seq.room))

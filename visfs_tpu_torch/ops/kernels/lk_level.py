@@ -101,13 +101,14 @@ def lk_level_cuda(img_from, img_to, gx, gy, pts, flow_in, active, *,
     flow = torch.empty_like(flow_in)
     ok = torch.empty_like(active)
     eig = torch.empty_like(active)
-    stream = torch.cuda.current_stream(img_from.device).cuda_stream
-    err = lib.visfs_lk_level(
-        img_from.data_ptr(), img_to.data_ptr(), gx.data_ptr(), gy.data_ptr(),
-        pts.data_ptr(), flow_in.data_ptr(), active.data_ptr(),
-        flow.data_ptr(), ok.data_ptr(), eig.data_ptr(),
-        n, h, w, int(win), int(iterations), float(eps) * float(eps),
-        float(min_eig_threshold), stream)
+    with torch.cuda.device(img_from.device):  # launch on the tensors' card
+        stream = torch.cuda.current_stream(img_from.device).cuda_stream
+        err = lib.visfs_lk_level(
+            img_from.data_ptr(), img_to.data_ptr(), gx.data_ptr(),
+            gy.data_ptr(), pts.data_ptr(), flow_in.data_ptr(),
+            active.data_ptr(), flow.data_ptr(), ok.data_ptr(),
+            eig.data_ptr(), n, h, w, int(win), int(iterations),
+            float(eps) * float(eps), float(min_eig_threshold), stream)
     if err != 0:
         raise RuntimeError(f"lk_level kernel launch failed: CUDA error {err}")
     LAUNCHES += 1

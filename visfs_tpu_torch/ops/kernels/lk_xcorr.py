@@ -128,11 +128,13 @@ def lk_xcorr_iterate_cuda(C1, C2, c1_const, c2_const, gi11, gi12, gi22,
                          "with 16-byte loads: A * A must be a multiple of 4 "
                          "and C1/C2 16-byte aligned")
     out = torch.empty_like(flow)
-    stream = torch.cuda.current_stream(C1.device).cuda_stream
-    err = lib.visfs_lk_xcorr(
-        C1.data_ptr(), C2.data_ptr(), *(v.data_ptr() for v in vectors),
-        flow.data_ptr(), active.data_ptr(), out.data_ptr(), n, a,
-        int(iterations), float(eps) * float(eps), float(max_off), stream)
+    with torch.cuda.device(C1.device):  # launch on the tensors' card
+        stream = torch.cuda.current_stream(C1.device).cuda_stream
+        err = lib.visfs_lk_xcorr(
+            C1.data_ptr(), C2.data_ptr(), *(v.data_ptr() for v in vectors),
+            flow.data_ptr(), active.data_ptr(), out.data_ptr(), n, a,
+            int(iterations), float(eps) * float(eps), float(max_off),
+            stream)
     if err != 0:
         raise RuntimeError(f"lk_xcorr kernel launch failed: CUDA error {err}")
     LAUNCHES += 1

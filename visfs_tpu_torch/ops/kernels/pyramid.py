@@ -116,7 +116,8 @@ def launch_pyr(fn, where: str, pyr_from, pyr_to, pts_from, pts_init, valid,
                min_eig_threshold: float, bidirectional: bool,
                fb_threshold: float):
     """Check the inputs and launch a pyramid entry's C function ``fn`` (of
-    PYR_ARGTYPES) on PyTorch's current stream; ``where`` names the entry.
+    PYR_ARGTYPES) on PyTorch's current stream of the tensors' device;
+    ``where`` names the entry.
     With a stream axis (planes [B, H, W], points [B, N, 2], valid [B, N])
     the one launch tracks every stream's features.
     Returns (points, status, err); raises when the launch fails."""
@@ -140,14 +141,17 @@ def launch_pyr(fn, where: str, pyr_from, pyr_to, pts_from, pts_init, valid,
     status = torch.empty_like(valid)
     err_out = torch.empty(valid.shape, dtype=torch.float32,
                           device=pts_from.device)
-    stream = torch.cuda.current_stream(pts_from.device).cuda_stream
-    err = fn(ptrs, shapes, levels, n_streams, strides, n,
-             pts_from.data_ptr(), pts_init.data_ptr(), valid.data_ptr(),
-             points.data_ptr(), status.data_ptr(), err_out.data_ptr(), n,
-             pyr_from.height, pyr_from.width, pyr_from.pad, int(win),
-             int(iterations), float(eps) * float(eps),
-             float(min_eig_threshold), int(bool(bidirectional)),
-             float(fb_threshold), stream)
+    # the C function launches on the calling thread's current device: make
+    # it the tensors' (one process may drive several cards)
+    with torch.cuda.device(pts_from.device):
+        stream = torch.cuda.current_stream(pts_from.device).cuda_stream
+        err = fn(ptrs, shapes, levels, n_streams, strides, n,
+                 pts_from.data_ptr(), pts_init.data_ptr(), valid.data_ptr(),
+                 points.data_ptr(), status.data_ptr(), err_out.data_ptr(), n,
+                 pyr_from.height, pyr_from.width, pyr_from.pad, int(win),
+                 int(iterations), float(eps) * float(eps),
+                 float(min_eig_threshold), int(bool(bidirectional)),
+                 float(fb_threshold), stream)
     if err != 0:
         raise RuntimeError(f"{where} kernel launch failed: CUDA error {err}")
     return points, status, err_out

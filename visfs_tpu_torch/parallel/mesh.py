@@ -88,7 +88,8 @@ def initialize_multihost(init_method: Optional[str] = None,
                          world_size: Optional[int] = None,
                          rank: Optional[int] = None,
                          backend: Optional[str] = None,
-                         timeout_s: float = 300.0) -> bool:
+                         timeout_s: float = 300.0,
+                         device_id: Optional[torch.device] = None) -> bool:
     """torch.distributed bring-up of the default process group.
 
     Returns True when the group is live after the call, including when it
@@ -98,7 +99,9 @@ def initialize_multihost(init_method: Optional[str] = None,
     EXPLICIT arguments a bad value or a failed bring-up raises instead of
     degrading to a single process (two ranks that quietly became two
     one-rank runs would diverge without an error).  ``backend`` defaults to
-    NCCL when CUDA is available, else gloo."""
+    NCCL when CUDA is available, else gloo.  ``device_id`` (this rank's
+    card) binds the NCCL communicator to it at bring-up, so the first
+    collective finds it made for the right device."""
     if dist.is_initialized():
         return True
     explicit = any(v is not None for v in (init_method, world_size, rank))
@@ -122,6 +125,8 @@ def initialize_multihost(init_method: Optional[str] = None,
         backend = "nccl" if torch.cuda.is_available() else "gloo"
     kw = {} if not explicit else dict(world_size=int(world_size),
                                       rank=int(rank))
+    if device_id is not None:
+        kw["device_id"] = torch.device(device_id)
     try:
         dist.init_process_group(backend, init_method=init_method,
                                 timeout=timedelta(seconds=timeout_s), **kw)

@@ -8,14 +8,20 @@ split over the mesh's ranks, a contiguous block each (shard_map's split):
     Huber weight;
   * the sparse normal system is never built: a matrix-free preconditioned
     conjugate gradient runs with per-edge gathers and ``index_add_``
-    scatters on the rank's edges and one all-reduce per matvec;
-  * a block-Jacobi preconditioner (6x6 per pose), also all-reduced, whose
-    blocks are inverted in closed form (``solve6x6_spd``): the reference's
+    scatters, the per-edge terms made on the rank's edges;
+  * a block-Jacobi preconditioner (6x6 per pose) whose blocks are
+    inverted in closed form (``solve6x6_spd``): the reference's
     ``jnp.linalg.inv`` would be a batched LU, and no step here waits for
     the host.
 
-Each psum of the reference (the gradient, the preconditioner, every CG
-matvec, chi2) is one ``all_reduce(SUM)``, skipped for a mesh of one.  The
+Where the reference psums each rank's per-pose partial sums (the
+gradient, the preconditioner, every CG matvec, chi2), each rank here
+all-gathers the ranks' per-edge terms (one ``all_gather`` a scatter,
+skipped for a mesh of one) and adds all of them in the one-rank solve's
+order.  A sum of partials would associate a pose's terms differently from
+the one-rank solve, and a graph with closures (poses of 3 edges or more)
+turns that last-bit difference into ~1e-4 m after the CG; so under
+deterministic algorithms the sharded solve equals the one-rank solve.  The
 loops run a fixed count with no data-dependent exit.
 """
 
@@ -28,7 +34,7 @@ import torch
 from ..solver.factors import (apply_tangent, huber_weight,
                               pose_link_jacobians, pose_link_residual,
                               solve6x6_spd)
-from .mesh import Mesh, psum, shard
+from .mesh import Mesh, all_gather, shard
 
 
 class PoseGraph(NamedTuple):
@@ -58,40 +64,54 @@ def _edge_terms(g: PoseGraph, pose_q, pose_t, huber_delta):
     return r, Ji, Jj, w, chi2
 
 
-def _scatter(n: int, g: PoseGraph, vi, vj):
-    """Per-pose sums of the edges' from- and to-side terms."""
+class _Edges(NamedTuple):
+    """Every edge's pose indices (int64): where each rank adds the
+    gathered per-edge terms."""
+
+    i: torch.Tensor  # [E]
+    j: torch.Tensor  # [E]
+
+
+def _scatter(n: int, edges: _Edges, vi, vj, group):
+    """Per-pose sums of the edges' from- and to-side terms: the ranks'
+    terms gathered in edge order, then added on every rank as the one-rank
+    solve adds them."""
+    both = all_gather(torch.stack((vi, vj), 1), group)
     out = vi.new_zeros((n,) + vi.shape[1:])
-    return out.index_add_(0, g.edge_i, vi).index_add_(0, g.edge_j, vj)
+    return out.index_add_(0, edges.i, both[:, 0]).index_add_(
+        0, edges.j, both[:, 1])
 
 
-def _shard_edges(graph: PoseGraph, mesh: Optional[Mesh]) -> PoseGraph:
-    """This rank's edges (indices as int64), the poses whole."""
+def _shard_edges(graph: PoseGraph, mesh: Optional[Mesh]):
+    """This rank's edges (indices as int64), the poses whole; and every
+    edge's indices."""
     group = None if mesh is None else mesh.group
     e = {f: shard(getattr(graph, f), group) for f in PoseGraph._fields
          if f.startswith("edge_")}
     e["edge_i"] = e["edge_i"].long()
     e["edge_j"] = e["edge_j"].long()
-    return graph._replace(**e)
+    return graph._replace(**e), _Edges(graph.edge_i.long(),
+                                       graph.edge_j.long())
 
 
-def _gn_step(g: PoseGraph, group, huber_delta, lam, cg_iters):
+def _gn_step(g: PoseGraph, edges: _Edges, group, huber_delta, lam,
+             cg_iters):
     """One Gauss-Newton step on a rank's edge shard: (q, t, chi2)."""
     N = g.pose_q.shape[0]
     dtype = g.pose_t.dtype
     free = (~g.pose_fixed).to(dtype)[:, None]  # [N, 1]
     r, Ji, Jj, w, chi2 = _edge_terms(g, g.pose_q, g.pose_t, huber_delta)
-    total_chi2 = psum(torch.sum(chi2 * g.edge_mask.to(dtype)), group)
+    total_chi2 = torch.sum(all_gather(chi2 * g.edge_mask.to(dtype), group))
 
-    # gradient b = -J^T W r, scattered per edge, then summed over ranks
-    b = _scatter(N, g, -torch.einsum("e,eki,ek->ei", w, Ji, r),
-                 -torch.einsum("e,eki,ek->ei", w, Jj, r))
-    b = psum(b, group) * free
+    # gradient b = -J^T W r, summed per pose over every rank's edges
+    b = _scatter(N, edges, -torch.einsum("e,eki,ek->ei", w, Ji, r),
+                 -torch.einsum("e,eki,ek->ei", w, Jj, r), group) * free
 
     # block-Jacobi preconditioner: the 6x6 diagonal blocks of H
-    M = _scatter(N, g, torch.einsum("e,eki,ekj->eij", w, Ji, Ji),
-                 torch.einsum("e,eki,ekj->eij", w, Jj, Jj))
+    M = _scatter(N, edges, torch.einsum("e,eki,ekj->eij", w, Ji, Ji),
+                 torch.einsum("e,eki,ekj->eij", w, Jj, Jj), group)
     eye6 = torch.eye(6, dtype=dtype, device=M.device)
-    M = psum(M, group) + (lam + 1e-6) * eye6
+    M = M + (lam + 1e-6) * eye6
     # the blocks are SPD: M^-1's columns by the closed-form 6x6 solve
     M_inv = solve6x6_spd(M[:, None], eye6.expand(N, 6, 6))
 
@@ -99,9 +119,9 @@ def _gn_step(g: PoseGraph, group, huber_delta, lam, cg_iters):
         """H x with H = J^T W J (+ lam I), matrix-free over edges."""
         y = torch.einsum("eki,ei->ek", Ji, x[g.edge_i]) \
             + torch.einsum("eki,ei->ek", Jj, x[g.edge_j])  # [E, 6] = J_e x
-        z = _scatter(N, g, torch.einsum("e,eki,ek->ei", w, Ji, y),
-                     torch.einsum("e,eki,ek->ei", w, Jj, y))
-        return (psum(z, group) + lam * x) * free
+        z = _scatter(N, edges, torch.einsum("e,eki,ek->ei", w, Ji, y),
+                     torch.einsum("e,eki,ek->ei", w, Jj, y), group)
+        return (z + lam * x) * free
 
     def precond(x):
         return torch.einsum("nij,nj->ni", M_inv, x) * free
@@ -137,9 +157,9 @@ def gn_step(graph: PoseGraph, mesh: Optional[Mesh] = None,
     """One Gauss-Newton step, the edges split over the mesh's ranks (every
     rank passes the whole graph); returns (pose_q, pose_t, chi2), chi2 at
     the step's input poses."""
-    g = _shard_edges(graph, mesh)
-    return _gn_step(g, None if mesh is None else mesh.group, huber_delta,
-                    lam, cg_iters)
+    g, edges = _shard_edges(graph, mesh)
+    return _gn_step(g, edges, None if mesh is None else mesh.group,
+                    huber_delta, lam, cg_iters)
 
 
 def optimize(graph: PoseGraph, mesh: Optional[Mesh] = None,
@@ -148,10 +168,10 @@ def optimize(graph: PoseGraph, mesh: Optional[Mesh] = None,
     """``iterations`` Gauss-Newton steps, the edges split over the mesh's
     ranks (every rank passes the whole graph and gets the same result);
     returns (q, t, chi2 of the last step's input poses)."""
-    g = _shard_edges(graph, mesh)
+    g, edges = _shard_edges(graph, mesh)
     group = None if mesh is None else mesh.group
     chi2 = torch.zeros((), dtype=g.pose_t.dtype, device=g.pose_t.device)
     for _ in range(iterations):
-        q, t, chi2 = _gn_step(g, group, huber_delta, lam, cg_iters)
+        q, t, chi2 = _gn_step(g, edges, group, huber_delta, lam, cg_iters)
         g = g._replace(pose_q=q, pose_t=t)
     return g.pose_q, g.pose_t, chi2
