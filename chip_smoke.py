@@ -6,8 +6,10 @@ Phases (each prints its lines; any failure exits non-zero without the final
 ``ok`` line):
   1. device   — require CUDA (no CPU fallback), print the card's name and
                 power limit, turn TF32 off;
-  2. build    — compile the CUDA kernels from visfs_tpu_torch/csrc, one nvcc
-                per source, all started together; ptxas registers/spills;
+  2. build    — compile the CUDA kernels from visfs_tpu_torch/csrc (K1, K2
+                and K3, the pose graph's fixed-order per-pose sum), one
+                nvcc per source, all started together; ptxas
+                registers/spills;
   3. k1       — the LK kernel (K1) against its plain PyTorch versions on
                 a 640x480 textured pair, N = 120 and N = 240 features:
                 its one-level entry on each of the four pyramid levels
@@ -52,21 +54,21 @@ Phases (each prints its lines; any failure exits non-zero without the final
                 stage split; then (profile) frames 2-11 of a fresh System
                 with profile_stages=True, each step as four synced stages,
                 the medians of the time_* fields printed, not gated;
-  6. xcorr    — the loop's first 60 frames with lk_params backend="jnp",
+  6. xcorr    — the loop's first 40 frames with lk_params backend="jnp",
                 iter_mode="xcorr" (the jnp level in correlation form): the
                 same gates with 2 launches of K2's pyramid entry, 0 of its
                 one-level entry and 0 of either K1 entry per frame;
   6b. fleet   — bench phase 3 (bench.py:160-187): FleetSystem(bench
-                parameters, 8 streams) on "cuda", 24 frames a stream from
+                parameters, 8 streams) on "cuda", 12 frames a stream from
                 offsets (k * 7) mod 260 of the main loop, frames 0-1 then
-                a timed loop over 2-23: exactly 2 K1 pyramid launches a
+                a timed loop over 2-11: exactly 2 K1 pyramid launches a
                 fleet frame for all 8 streams and 0 of every other entry,
                 0 host syncs, each stream's ATE <= 0.15 m and 0 lost; a
                 second pass bit-equal; streams 0 and 7 against Systems of
                 seeds 0 and 7, each frame stepped from the fleet's stream
                 state (1e-3 m, 1e-3 rad, identical lost flags); printed:
                 stream 0's System free running (the vmapped reductions
-                reassociate, and 24 frames amplify it), the aggregate fps
+                reassociate, and 12 frames amplify it), the aggregate fps
                 and its ratio to main's, kernels and kernel time a fleet
                 frame (profiler) beside one stream's;
   7. s3       — the reference bench's phase 4 (bench.py:187-262) at full
@@ -83,20 +85,28 @@ Phases (each prints its lines; any failure exits non-zero without the final
                 free-space probes); fps, a stage split, the submap
                 insertion's device time per call (profiler) and the kernels
                 a frame at strategies 0 and 3 (profiler);
+  7b. s4     — phase s3's loop and point at SensorStrategy 4 (the laser's
+                occupied-space terms in the BA, wheel rows, the submaps),
+                free running: ATE <= S4_ATE_BOUND (the JAX package's
+                one-ulp band, which straddles 0.15 m), 0 lost, 0 host
+                syncs, 2 launches of K1's pyramid entry a frame and 0 of
+                every other entry, finite poses, and phase s3's map probes
+                but the one the JAX package's own map fails here
+                (S4_MAP_EXEMPT); the JAX package's figures printed;
   8. mapping  — configs/sim_mapping.yaml's visfs block verbatim
                 (SensorStrategy 3 with CLAHE, NumRangeDataLimit 60,
-                MaxLaserRange 30) over the first 80 frames of phase s3's
+                MaxLaserRange 30) over the first 40 frames of phase s3's
                 sequence and feed, with phase s3's gates;
   9. loc_cull — configs/sim_localization.yaml's visfs block verbatim
                 (FlowBack off, 200 features) with Tracker/
                 CullByFundationMatrix and FundationPixelError 2.0 over the
-                main loop's first 80 frames: ATE <= 0.15 m, 0 lost,
+                main loop's first 40 frames: ATE <= 0.15 m, 0 lost,
                 exactly 2 one-way launches of K1's pyramid entry a frame
                 and 0 of every other entry, 0 host syncs (the cull's
                 sync-free eigensolvers); the features the cull rejects
                 each frame printed;
  10. rgbd     — the bench parameters with SensorStrategy 1, fed the left
-                images and the ray-cast depth of the main loop's first 80
+                images and the ray-cast depth of the main loop's first 40
                 frames: ATE <= 0.15 m, 0 lost, exactly 1 (bidirectional)
                 launch of K1's pyramid entry a frame (the temporal track;
                 depth replaces the stereo track) and 0 of every other
@@ -137,40 +147,54 @@ Phases (each prints its lines; any failure exits non-zero without the final
                 20 gross outliers of 120, key 0, threshold 1.5, 64
                 hypotheses): identical inlier masks, every gross outlier
                 rejected;
+ 12b. render — the CUDA render held against the CPU render: frames 0, 1
+                and the last of the bench loop (with depth), phase s3's
+                laser loop (with scans) and phase backend's loop, both
+                views ray-cast on "cuda" and "cpu"; the differing pixels,
+                depths and beams and the largest |d| printed;
  13. backend  — the mapping back-end: MultiRobotMapping with two robots
-                (bench parameters, one System each, K1) over a 240-frame
-                640x480 textured square loop (seed 11, two laps; robot 1
-                drives the second lap from its true start pose),
+                (bench parameters, one System each, K1) on a 240-frame
+                640x480 textured square loop (seed 11, two laps), robot 0
+                over frames 0-59 of the first lap, robot 1 over frames
+                120-179 of the second from its true start pose there,
                 close_loops(radius 2.5, min_gap 8, min_inliers 10) and
                 optimize(10 steps, 60 CG iterations): each robot's VO ATE
                 <= 0.15 m and 0 lost, exactly 2 launches of K1's pyramid
                 entry a frame and 0 of every other entry, >= 3 keyframes a
-                robot, >= 1 cross-robot closure (the JAX package finds 9
+                robot, >= 1 cross-robot closure (the JAX package finds 7
                 here), 0 host syncs in one verify_loop call and in one
                 pose-graph solve, chi2 finite and lower after the solve,
                 the keyframe error after it within 0.15 m; every decided
                 pair's verify_loop on "cpu" from the same snapshots and
                 keys (ok identical, inliers within 1, rel within 1e-3 m
                 and 1e-3 rad) and the solve on "cpu" (poses within 1e-4 m
-                and 1e-4 rad); keyframes, candidates, closures, chi2 and
-                the keyframe error before and after, the times and kernels
-                (profiler) of close_loops, one verify_loop and optimize
-                printed.
+                and 1e-4 rad); every solve in PyTorch's default mode, the
+                sync probe's, the profiled one and MultiRobotMapping.
+                optimize's bit-equal, with exactly 10 x (60 + 3) launches
+                of K3 in optimize; keyframes, candidates, closures, chi2
+                and the keyframe error before and after, the times and
+                kernels (profiler) of close_loops, one verify_loop and
+                optimize printed.  Then K3 against its plain version at
+                the solve's shapes (the first Gauss-Newton step's terms
+                of the session's graph, [E, 2, 6] and [E, 2, 6, 6]):
+                bit-equal to index_add_ on "cpu" (tolerance 0), its gap to
+                index_add_ on "cuda" (atomic order) printed, its device
+                time, the plain version's, one index_add_'s and the bound.
  14. node     — the node (the robot's way of running the system, the
                 reference's ROS node): configs/sim_mapping.yaml's whole
                 operating point (node block: approx sync, queue 10, slop
                 0.01; visfs block) through VISFSAdapter with the native
                 sync runtime over a StaticTransport on "cuda", the frame
                 tree the sequence's own (identity) extrinsics, the baseline
-                from the camera info; the first 80 frames of phase s3's
+                from the camera info; the first 40 frames of phase s3's
                 sequence injected from the main thread as host numpy in
                 stamp order (wheel rows, scan, left, right) with
                 back-pressure (the next frame only while the synced queue
                 holds fewer than 9), spin_once draining, the runtime's C++
                 worker stepping the System: ATE <= 0.15 m and 0 lost over
-                frames 2-79, phase s3's map gate, exactly 2 launches of K1's
+                frames 2-39, phase s3's map gate, exactly 2 launches of K1's
                 pyramid entry a frame and 0 of every other entry, synced =
-                processed = 80 and nothing dropped, 80 odom and odom_info
+                processed = 40 and nothing dropped, 40 odom and odom_info
                 published, the odometry buffer's head equal to the wheel
                 rows injected, 0 host syncs in one input of host numpy
                 frames, wheel rows and scan (a probe System), save_system ->
@@ -179,7 +203,8 @@ Phases (each prints its lines; any failure exits non-zero without the final
                 the enqueue-to-publish latency p50/p99 and the runtime's
                 last_latency_ms printed.  Phase backend also saves its
                 session's back-end (save_mapping), restores it into a fresh
-                MappingBackend and solves both graphs once: bit-equal.
+                MappingBackend and solves both graphs once in the default
+                mode: bit-equal.
  15. dp       — the port's multi-card entry (visfs_tpu_torch.multichip, the
                 twin of __graft_entry__.dryrun_multichip) at min(4, cards)
                 ranks over NCCL, one card a rank, spawned as `python -m
@@ -194,9 +219,12 @@ Phases (each prints its lines; any failure exits non-zero without the final
                 lost, phase s3's map gate at 3; FleetMapping over phase
                 backend's scene, DP_ROBOT_FRAMES frames a robot, held
                 against MultiRobotMapping (keyframes, nodes, edges and
-                closures identical, poses after optimize within 1e-4 m and
-                rad, >= 1 cross-robot closure with 2 ranks or more, 0 host
-                syncs in one verify_loop and one solve); the dryrun's
+                closures identical, poses after optimize within 1e-4 m
+                and rad, two sharded solves and two one-rank solves each
+                bit-equal and the sharded solve within 1e-4 of the
+                one-rank solve, all in the default mode, >= 1 cross-robot
+                closure with 2 ranks or more, 0 host syncs in one
+                verify_loop and one solve); the dryrun's
                 landmark-sharded BA and edge-sharded pose graph against the
                 one-rank solve (1e-5, landmarks 2.1e-4 m); the aggregate
                 fps, the gather's device ms a frame and the close-and-solve
@@ -208,7 +236,9 @@ close the output.
 
 A kernel's "ms" (device time), "plain_ms" and "bound_ms" in the kernels
 line are one frame's worth of its launches: for each of K1 and K2, its
-path's two pyramid launches, one at N = 120 plus one at N = 240.  The k1
+path's two pyramid launches, one at N = 120 plus one at N = 240; for K3,
+one solve's: 10 x 62 launches at [N, 6] and 10 at [N, 6, 6], with its
+"library_ms" one index_add_ over the 2E endpoints a launch.  The k1
 and k2 lines also give one frame's worth of each one-level entry (16
 launches: the (N, level) cases, each twice).  A bound counts the bytes the
 launch's inputs need once each: the pixels of the patches K1 samples and
@@ -239,6 +269,25 @@ import numpy as np
 N_FRAMES = 300
 S3_FRAMES = 120  # bench.py phase 4 (VISFS_BENCH_S3_FRAMES default)
 S3_SCAN_CAPACITY = 256
+# Phase s4 is phase s3's point at strategy 4.  Frame 1 has no wheel link,
+# so the laser terms alone fill the Hessian's out-of-plane dofs, which the
+# reference's autodiff leaves at float32 residues: its step there is huge,
+# the step guard drops it, and frame 1 stays at frame 0's pose, 0.200 m
+# from the truth (the port takes the Jacobian the same way).  From there
+# one ulp of the state moves the ATE: the JAX package on the CPU 0.1445 m
+# unperturbed and 0.1460-0.1692 m over 16 runs nudged by one ulp before
+# every frame from frame 1 (reference_s3_ate.py --strategy 4
+# --nudge-seeds 16), 12 of them above bench.py's 0.15 m.  So the ATE is
+# held to the top of that band and ~6 mm, S4_ATE_BOUND, which the port's
+# former closed-form Jacobian (0.1843 m on the CPU, 0.1848 m on the card)
+# failed; and the map to phase s3's probes but the far wall level with the
+# matching submap's origin, which the JAX package's own map fails here
+# (0.100; reference_s3_ate.py --strategy 4 --submaps-out, then
+# tools/torch_s3_ate.py --probe-submaps).
+S4_ATE_BOUND = 0.175
+S4_MAP_EXEMPT = ("wall 15.50,",)
+S4_REFERENCE = ("ATE 0.1445 m, 0 lost of 118; 0.1460-0.1692 m with one ulp "
+                "of its state nudged (16 seeds); the far-wall probe failing")
 WIDTH, HEIGHT = 640, 480
 S3_RENDER = dict(n_frames=S3_FRAMES, width=WIDTH, height=HEIGHT,
                  motion="square", seed=1, speed=2.0, with_laser=True,
@@ -266,11 +315,15 @@ CULL = {"Tracker/CullByFundationMatrix": True,
         "Tracker/FundationPixelError": 2.0}  # tests/test_fundamental.py:80
 # phase xcorr's depth (the main loop's first frames): 80 since phase fleet
 # joined (with it at 120 the whole script took 948.5 s of its 1,200 s), 60
-# since phase dp joined
-XCORR_FRAMES = 60
-# phases mapping, loc_cull and rgbd: 80 since phase backend joined (with
-# them at 120 the whole script took 865 s of its 1,200 s on an H100)
-MODE_FRAMES = 80
+# since phase dp joined, 40 since phase s4 joined (with these four depths
+# cut the script took 649.7 s at main 1.89 fps; given back, with xcorr at
+# 60, the modes and the node at 80 and the fleet at 24, it took 1,303.8 s
+# of its 1,200 s on a slower host, main at 1.33 fps)
+XCORR_FRAMES = 40
+# phases mapping, loc_cull, rgbd and node: 80 since phase backend joined
+# (with them at 120 the whole script took 865 s of its 1,200 s on an H100),
+# 40 since phase s4 joined (the script's time, as XCORR_FRAMES)
+MODE_FRAMES = 40
 CLAHE_BOUND = 1e-3  # levels, clahe on "cuda" against "cpu"
 # phase small, strategy 5: the one-ulp nudged "cpu" steps tried on a frame
 # whose lost flags differ
@@ -278,18 +331,20 @@ WITNESS_SEEDS = 16
 # bench.py phase 3 (bench.py:160-187): B streams, the streams starting at
 # (k * 7) mod (frames - 40) of the loop; FLEET_FRAMES frames a stream, 24
 # of bench.py's 40 since phase dp joined (with 40 and phase dp the script
-# would outrun its 1,200 s on a slower host)
+# would outrun its 1,200 s on a slower host), 12 since phase s4 joined (the
+# script's time, as XCORR_FRAMES)
 FLEET_B = 8
 BENCH_FLEET_FRAMES = 40
-FLEET_FRAMES = 24
+FLEET_FRAMES = 12
 FLEET_COMPARED = (0, 7)  # the streams held against single Systems
 # each timed loop's fps by label, for phase fleet's ratio to main's
 LOOP_FPS = {}
 # phase dp: frames a stream in its sections a and b, frames a robot in c
 # (at 24 and 60 the phase took 132-141 s; on one card section c needs no
-# cross-robot closure, and 30 frames still give it loop candidates)
-DP_FRAMES = 12
-DP_ROBOT_FRAMES = 30
+# cross-robot closure, and 30 frames still give it loop candidates); 8 and
+# 24 since phase s4 joined (the script's time, as XCORR_FRAMES)
+DP_FRAMES = 8
+DP_ROBOT_FRAMES = 24
 
 
 def bench_params(width):
@@ -1425,6 +1480,12 @@ def s3_params(width):
     return dict(bench_params(width), **{"System/SensorStrategy": 3})
 
 
+def s4_params(width):
+    """Phase s4: phase s3's point at SensorStrategy 4 (the laser's
+    occupied-space terms in the BA, wheel rows, the submaps)."""
+    return dict(s3_params(width), **{"System/SensorStrategy": 4})
+
+
 def wheel_and_scan_feeder(sys_, seq, lefts, rights, wheel=True, scans=True,
                           row=0):
     """feed(i): frame i's wheel rows up to its stamp in one batch (from
@@ -1464,32 +1525,45 @@ def device_ms_per_call(fn, reps=10):
     return sum(us) / reps / 1e3, len(us) / reps
 
 
-def map_gate(submaps, room, label):
+def map_gate(submaps, room, label, exempt=()):
     """The map's gates on the matching grid (tests/test_laser_fusion.py:
     135-165; visfs_tpu_torch.multichip.map_probes at the scene's own
-    start): probability > 0.5 within a 3x3 neighbourhood of every wall
-    probe inside the grid, < 0.5 at the free-space probes.  The wall probes
-    are the test's three and the four walls level with the matching
-    submap's origin; the free-space probes the test's (0.5, 0) and that
-    origin.  At least one wall probe must lie inside."""
+    start): a live slot, probability > 0.5 within a 3x3 neighbourhood of
+    every wall probe inside the grid, < 0.5 at the free-space probes.  The
+    wall probes are the test's three and the four walls level with the
+    matching submap's origin; the free-space probes the test's (0.5, 0) and
+    that origin.  At least one wall probe must lie inside.  A failing probe
+    whose row starts with one of ``exempt`` is printed, not gated: the JAX
+    package's own map fails it at that point."""
     from visfs_tpu_torch.multichip import map_probes
 
     rows, bad = map_probes(submaps, room)
+    waived = [b for b in bad if b.startswith(tuple(exempt))]
+    bad = [b for b in bad if b not in waived]
     print(f"{label} map: slots {submaps.slot_valid.tolist()}, range data "
           f"{submaps.num_range_data.tolist()}, finished "
           f"{submaps.finished.tolist()}; matching grid probes: "
-          + "; ".join(rows), flush=True)
+          + "; ".join(rows) + (f"; failing where the JAX package's map "
+                               f"fails too: {waived}" if waived else ""),
+          flush=True)
+    if not bool(submaps.slot_valid.any()):
+        fail(f"{label}: no live submap slot")
     if bad:
         fail(f"{label}: map probes failed: {bad}")
 
 
 def phase_s3(System, cached_textured_sequence, cache_dir, expect, ate_rmse,
-             label="s3", params=None, probes=True, frames=S3_FRAMES):
+             label="s3", params=None, probes=True, frames=S3_FRAMES,
+             ate_gate=ATE_GATE, map_exempt=(), reference=None):
     """Bench phase 4 on the card: SensorStrategy 3 over the 120-frame
     640x480 loop with wheel rows and scans (params default bench phase 4's;
-    phase mapping passes configs/sim_mapping.yaml's block) or its first
-    ``frames``.  expect as for phase_loop.  probes: the insertion's device
-    time and the kernels a frame at strategies 0 and 3."""
+    phase mapping passes configs/sim_mapping.yaml's block, phase s4 the
+    same loop at strategy 4) or its first ``frames``.  expect as for
+    phase_loop.  probes: the insertion's device time and the kernels a
+    frame at strategies 0 and 3.  ate_gate and map_exempt: the ATE's limit
+    and the map probes not gated (phase s4 passes its own: S4_ATE_BOUND
+    says why).  reference: the JAX package's figures at this point,
+    printed beside the result."""
     import torch
 
     import visfs_tpu_torch.slam.estimator as est_mod
@@ -1554,6 +1628,9 @@ def phase_s3(System, cached_textured_sequence, cache_dir, expect, ate_rmse,
           f"{ate:.4f} m, lost {lost}/{len(outs)}, fewest inliers "
           f"{min(int(o.n_inliers) for o in outs)}, {counts}, host syncs in "
           f"loop {len(syncs)}", flush=True)
+    if reference:
+        print(f"{label}: the JAX package here on the CPU: {reference} (a "
+              f"comparison, not a gate)", flush=True)
     print(f"{label} stages (medians per frame): " + json.dumps(stages),
           flush=True)
     for msg in sorted(set(syncs))[:5]:
@@ -1564,9 +1641,9 @@ def phase_s3(System, cached_textured_sequence, cache_dir, expect, ate_rmse,
         print(f"{label} submap insertion (the last frame's inputs): "
               f"{ins_ms:.4f} ms of device time per call in {ins_kernels:g} "
               f"kernels (torch.profiler)", flush=True)
-    map_gate(sys_.state.laser.submaps, seq.room, label)
-    if not ate <= ATE_GATE:
-        fail(f"{label}: ATE {ate:.4f} m > {ATE_GATE}")
+    map_gate(sys_.state.laser.submaps, seq.room, label, exempt=map_exempt)
+    if not ate <= ate_gate:
+        fail(f"{label}: ATE {ate:.4f} m > {ate_gate}")
     if lost:
         fail(f"{label}: {lost} lost frames")
     if syncs:
@@ -1805,15 +1882,22 @@ def phase_cull():
 # the JAX package's own VO loses 7 frames a robot there (reference_backend.py
 # --frames 160); at 240 (0.12 rad, the bench loop's corner rate) it tracks.
 BACKEND_FRAMES = 240
+# Each robot drives the first BACKEND_ROBOT_FRAMES frames of its lap (robot
+# 0 frames 0-59, robot 1 frames 120-179 from its true pose at frame 120):
+# the same scene and corner rate (its loops=2.0 ties the corner rate to
+# the scene's frames, so the scene stays whole) at half of the VO
+# frames, since phase s4 joined (the script's time).
+BACKEND_ROBOT_FRAMES = 60
 BACKEND_RENDER = dict(n_frames=BACKEND_FRAMES, width=WIDTH, height=HEIGHT,
                       motion="square", seed=11, loops=2.0,
                       room=(-3.0, 13.0, -6.0, 6.0))
 BACKEND_SESSION = dict(max_nodes=128, max_edges=512, snapshot_kp=48)
 BACKEND_LOOPS = dict(radius=2.5, min_gap=8, min_inliers=10)
 BACKEND_SOLVE = dict(iterations=10, cg_iters=60)
-# The JAX package at this point finds 9 cross-robot closures (of 16
-# candidates; reference_backend.py, CPU): the port must find at least one.
-REFERENCE_CROSS_EDGES = 9
+# The JAX package at this point finds 7 cross-robot closures (of 16
+# candidates; reference_backend.py --robot-frames 60, CPU; 9 over the whole
+# laps): the port must find at least one.
+REFERENCE_CROSS_EDGES = 7
 # card against CPU: verify_loop's rel, optimize_graph's poses
 VERIFY_REL_BOUND = 1e-3
 GRAPH_POSE_BOUND = 1e-4
@@ -1889,12 +1973,16 @@ def phase_backend(cached_textured_sequence, cache_dir, ate_rmse, expect):
     from visfs_tpu_torch.core.camera import make_stereo_camera
     from visfs_tpu_torch.core.lie import se3_matrix
     from visfs_tpu_torch.io import checkpoint
+    from visfs_tpu_torch.ops.kernels import segment_sum as k3_mod
     from visfs_tpu_torch.slam import mapping
     from visfs_tpu_torch.slam.multi_robot import MultiRobotMapping
 
     seq = cached_textured_sequence(cache_dir=cache_dir, device="cuda",
                                    **BACKEND_RENDER)
     lap = BACKEND_FRAMES // 2
+    robot_frames = (range(0, BACKEND_ROBOT_FRAMES),
+                    range(lap, lap + BACKEND_ROBOT_FRAMES))
+    n_vo = 2 * BACKEND_ROBOT_FRAMES
     lefts = [torch.as_tensor(f, device="cuda") for f in seq.left]
     rights = [torch.as_tensor(f, device="cuda") for f in seq.right]
     cam = seq.camera
@@ -1916,25 +2004,25 @@ def phase_backend(cached_textured_sequence, cache_dir, ate_rmse, expect):
     for mod, counter in expect:
         setattr(mod, counter, 0)
     t0 = time.perf_counter()
-    for k in range(BACKEND_FRAMES):
-        session.input_primary_sensor_data(0 if k < lap else 1,
-                                          float(seq.stamps[k]), lefts[k],
-                                          rights[k])
+    for r, frames in enumerate(robot_frames):
+        for k in frames:
+            session.input_primary_sensor_data(r, float(seq.stamps[k]),
+                                              lefts[k], rights[k])
     session.finish()
     torch.cuda.synchronize()
     vo_s = time.perf_counter() - t0
     launches = {key: getattr(*key) for key in expect}
 
     robots = []
-    for r, frames in ((0, range(0, lap)), (1, range(lap, BACKEND_FRAMES))):
+    for r, frames in enumerate(robot_frames):
         outs = vo[r][1:]  # after the bootstrap frame
         est = np.stack([session.start_poses[r] @ o.pose for o in outs])
         robots.append((ate_rmse(est, seq.poses[list(frames)[1:]]),
                        int(sum(bool(o.lost) for o in outs)), len(outs)))
     counts = session.keyframe_counts()
     backend = session.backend
-    print(f"backend: VO {BACKEND_FRAMES} frames in {vo_s:.2f} s "
-          f"({BACKEND_FRAMES / vo_s:.2f} fps, harvest and snapshots "
+    print(f"backend: VO {n_vo} frames in {vo_s:.2f} s "
+          f"({n_vo / vo_s:.2f} fps, harvest and snapshots "
           f"included); robot ATE / lost: "
           + ", ".join(f"{a:.4f} m / {lost} of {n}" for a, lost, n in robots)
           + f"; keyframes {counts}; "
@@ -1946,10 +2034,10 @@ def phase_backend(cached_textured_sequence, cache_dir, ate_rmse, expect):
         if lost:
             fail(f"backend: robot {r} lost {lost} frames")
     for (mod, counter), per_frame in expect.items():
-        if launches[mod, counter] != per_frame * BACKEND_FRAMES:
+        if launches[mod, counter] != per_frame * n_vo:
             fail(f"backend: {mod.__name__}.{counter} is "
                  f"{launches[mod, counter]}, expected "
-                 f"{per_frame * BACKEND_FRAMES}")
+                 f"{per_frame * n_vo}")
     if min(counts) < 3:
         fail(f"backend: keyframes {counts}, fewer than 3 a robot")
 
@@ -2033,17 +2121,44 @@ def phase_backend(cached_textured_sequence, cache_dir, ate_rmse, expect):
 
     # optimize: the error before and after, chi2, syncs in one solve, the
     # same solve on cpu
+    # every solve in PyTorch's default mode: the pose graph's per-pose sums
+    # add in one fixed order (K3), so each solve of g0 gives one answer
+    if torch.are_deterministic_algorithms_enabled():
+        fail("backend: deterministic algorithms are on")
     g0 = backend.graph
     err0 = keyframe_error(session.poses(), g0, seq)
     chi2_0 = float(mapping.optimize_graph(g0, None, iterations=1,
                                           cg_iters=1)[1])
     (g_probe, chi2_probe), syncs, o_dev, o_wall = sync_probe(
         lambda: mapping.optimize_graph(g0, None, **BACKEND_SOLVE))
+    profiled = []
     o_kernels, o_kms = device_kernels(
-        lambda: mapping.optimize_graph(g0, None, **BACKEND_SOLVE))
+        lambda: profiled.append(mapping.optimize_graph(g0, None,
+                                                       **BACKEND_SOLVE)))
+    k3_mod.LAUNCHES = 0
     t0 = time.perf_counter()
     chi2 = session.optimize(**BACKEND_SOLVE)
     solve_wall = (time.perf_counter() - t0) * 1e3
+    k3_launches = k3_mod.LAUNCHES
+    k3_expect = BACKEND_SOLVE["iterations"] * (BACKEND_SOLVE["cg_iters"] + 3)
+    unequal = [f"{name} {f}" for name, g in (("profiled", profiled[0][0]),
+                                             ("optimize", backend.graph))
+               for f in ("pose_q", "pose_t")
+               if not torch.equal(getattr(g, f), getattr(g_probe, f))]
+    print(f"backend: three default-mode solves of the graph (the sync probe, "
+          f"the profiled one, MultiRobotMapping.optimize): "
+          f"{'bit-equal' if not unequal else f'differ in {unequal}'}, chi2 "
+          f"{float(chi2_probe):.9g} / {float(profiled[0][1]):.9g} / "
+          f"{chi2:.9g}; {k3_mod.__name__.rsplit('.', 1)[-1]}.LAUNCHES "
+          f"{k3_launches} in optimize (expected {k3_expect}); deterministic "
+          f"algorithms {torch.are_deterministic_algorithms_enabled()}",
+          flush=True)
+    if unequal or float(chi2_probe) != chi2:
+        fail(f"backend: two default-mode solves of one graph differ "
+             f"({unequal})")
+    if k3_launches != k3_expect:
+        fail(f"backend: segment_sum launched {k3_launches} times in "
+             f"optimize, expected {k3_expect}")
     mapping_resumed(checkpoint, mapping, backend, g0, cache_dir)
     err1 = keyframe_error(session.poses(), backend.graph, seq)
     g_cpu, _ = mapping.optimize_graph(
@@ -2076,7 +2191,174 @@ def phase_backend(cached_textured_sequence, cache_dir, ate_rmse, expect):
     if g_dt > GRAPH_POSE_BOUND or g_dang > GRAPH_POSE_BOUND:
         fail(f"backend: optimize_graph cuda vs cpu {g_dt:.3g} m, "
              f"{g_dang:.3g} rad")
-    return launches
+    return launches, k3_launches, phase_k3(mapping, k3_mod, g0)
+
+def phase_k3(mapping, k3_mod, g0):
+    """K3, the pose graph's fixed-order per-pose sum, against its plain
+    version at the shapes phase backend's solve gives it: the terms of the
+    first Gauss-Newton step of g0 as the solve hands them over (the
+    gradient and each CG matvec [E, 2, 6], the preconditioner blocks [E, 2,
+    6, 6]).  The kernel on "cuda" against the plain version (index_add_,
+    which adds in order on the CPU) on the same terms copied to "cpu":
+    bit-equal (tolerance 0); against the plain version on "cuda"
+    (index_add_ in atomic order): printed.  Returns one solve's worth
+    (BACKEND_SOLVE: iterations x (cg_iters + 2) launches at [N, 6] and
+    iterations at [N, 6, 6]) of the device ms, the plain version's and one
+    index_add_ call's (the library call: all 2E endpoints, atomic order)
+    CUDA-event ms, and the bound: each walked term, its row index, the run
+    starts and the output once, one add per walked term and column."""
+    import torch
+
+    from visfs_tpu_torch.parallel import pose_graph
+
+    seen = {}
+    real = pose_graph.segment_sum
+
+    def keep(terms, seg, n):
+        seen.setdefault(tuple(terms.shape[2:]), (terms, seg, n))
+        return real(terms, seg, n)
+
+    pose_graph.segment_sum = keep
+    try:
+        mapping.optimize_graph(g0, None, iterations=1, cg_iters=1)
+    finally:
+        pose_graph.segment_sum = real
+    device_us = k3_device_us_fresh(seen)
+    rows = {}
+    for shape, (terms, seg, n) in sorted(seen.items()):
+        label = f"k3 [{n}, {', '.join(map(str, shape))}]"
+        out = k3_mod.segment_sum_cuda(terms, seg, n)
+        host = k3_mod.segment_sum_reference(
+            terms.cpu(), k3_mod.Segments(*(x.cpu() for x in seg)), n)
+        err = float((out.cpu() - host).abs().max())
+        bit_equal = torch.equal(out.cpu().view(torch.int32),
+                                host.view(torch.int32))
+        atomic = float((k3_mod.segment_sum_reference(terms, seg, n)
+                        - out).abs().max())
+        call_ms = cuda_time_ms(lambda: k3_mod.segment_sum_cuda(terms, seg, n))
+        ms, how = device_us[shape], "profiler, a fresh process"
+        if ms is None:
+            ms, how = call_ms, ("CUDA events around a call: the fresh "
+                                "process's traces held no launch")
+        else:
+            ms /= 1e3
+        plain_ms = cuda_time_ms(
+            lambda: k3_mod.segment_sum_reference(terms, seg, n))
+        e, cols = terms.shape[0], terms[0, 0].numel()
+        flat = terms.reshape(2 * e, cols)
+        keys = torch.stack((seg.i, seg.j), 1).reshape(-1)
+        acc = torch.zeros((n, cols), dtype=terms.dtype, device=terms.device)
+        library_ms = cuda_time_ms(lambda: acc.index_add_(0, keys, flat))
+        walked = int(seg.start[-1])
+        bytes_ms, ops_ms = bound(
+            walked * cols * 4 + walked * 8 + (n + 1) * 8 + n * cols * 4,
+            walked * cols)
+        rows[shape] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                           library_ms=library_ms, bytes_ms=bytes_ms,
+                           ops_ms=ops_ms, bound_ms=max(bytes_ms, ops_ms),
+                           max_abs_err=err)
+        print(f"{label}: {e} edges, {walked} endpoints walked, largest run "
+              f"{int((seg.start[1:] - seg.start[:-1]).max())}; kernel "
+              f"{ms * 1e3:.2f} us device ({how}; call {call_ms:.3f} ms), "
+              f"plain "
+              f"{plain_ms:.3f} ms, one index_add_ {library_ms:.3f} ms, "
+              f"bound {max(bytes_ms, ops_ms) * 1e3:.4f} us "
+              f"({'bytes' if bytes_ms >= ops_ms else 'operations'}); "
+              f"against the plain version on cpu max |d| {err:.3g} "
+              f"({'bit-equal' if bit_equal else 'NOT bit-equal'}), on cuda "
+              f"(atomic order) {atomic:.3g}", flush=True)
+        if not bit_equal:
+            fail(f"{label}: the kernel is not bit-equal to its plain version "
+                 f"on cpu (max |d| {err:.3g})")
+    if set(rows) != {(6,), (6, 6)}:
+        fail(f"k3: the solve's scatters have shapes {sorted(rows)}")
+    per_solve = {(6,): BACKEND_SOLVE["iterations"]
+                 * (BACKEND_SOLVE["cg_iters"] + 2),
+                 (6, 6): BACKEND_SOLVE["iterations"]}
+    tot = {k: sum(per_solve[sh] * r[k] for sh, r in rows.items())
+           for k in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
+                     "bytes_ms", "ops_ms")}
+    tot["bound_by"] = ("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
+                       else "operations")
+    tot["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
+    print(f"k3: one solve ({sum(per_solve.values())} launches): "
+          + json.dumps({k: tot[k] for k in ("ms", "call_ms", "plain_ms",
+                                            "library_ms", "bound_ms")}),
+          flush=True)
+    return tot
+
+
+def k3_device_us_fresh(seen):
+    """K3's device us a launch on each of phase backend's inputs (shape ->
+    (terms, layout, n)), from torch.profiler traces in a fresh process
+    (``chip_smoke.py --k3-device-us PATH``, the inputs saved under build/):
+    late in this script a trace of K3's launches has come back with no
+    device record, where a fresh process's hold them.  None where no trace
+    shows the kernel."""
+    import torch
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "k3_inputs.pt")
+    torch.save({shape: (terms.cpu(), tuple(x.cpu() for x in seg), n)
+                for shape, (terms, seg, n) in seen.items()}, path)
+    run = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--k3-device-us", path], capture_output=True,
+                         text=True, timeout=300)
+    if run.returncode != 0:
+        fail(f"k3: the timing process exited {run.returncode}: "
+             f"{run.stderr[-2000:]}")
+    found = json.loads(run.stdout.strip().splitlines()[-1])
+    return {shape: found[str(list(shape))] for shape in seen}
+
+
+def k3_device_us(path):
+    """The fresh process of k3_device_us_fresh: prints one JSON object,
+    str(list(shape)) -> K3's median device us a launch (None if no trace
+    shows it)."""
+    import torch
+
+    from visfs_tpu_torch.ops.kernels import segment_sum as k3_mod
+
+    out = {}
+    for shape, (terms, seg, n) in torch.load(path).items():
+        terms = terms.cuda()
+        seg = k3_mod.Segments(*(x.cuda() for x in seg))
+        ms, traces = kernel_device_ms(
+            lambda: k3_mod.segment_sum_cuda(terms, seg, n),
+            "segment_sum_kernel")
+        out[str(list(shape))] = None if ms is None else ms * 1e3
+    print(json.dumps(out), flush=True)
+
+
+def phase_render(cache_dir):
+    """The CUDA render held against the CPU render (bit-equal to the
+    reference's, tests/test_torch_sim_starfield.py): the first two and the
+    last frame of each scene the card phases render (the bench loop with
+    its depth, phase s3's laser loop, phase backend's two-lap loop), both
+    views ray-cast on "cuda" and on "cpu" before exposure, noise and
+    quantization; the pixels, depths and scan beams that differ and the
+    largest |d| printed (images in [0, 1]; x 175 is 8-bit levels)."""
+    from visfs_tpu_torch.io.sim import render_textured_views
+
+    scenes = (("bench", dict(n_frames=N_FRAMES, width=WIDTH, height=HEIGHT,
+                             motion="square", seed=0, speed=2.0)),
+              ("s3", S3_RENDER), ("backend", BACKEND_RENDER))
+    found = {}
+    for name, kw in scenes:
+        frames = (0, 1, kw["n_frames"] - 1)
+        card, host = (render_textured_views(frames, device=dev, **kw)
+                      for dev in ("cuda", "cpu"))
+        parts = []
+        for what, a, b in zip(("images", "depth", "scans"), card, host):
+            if a is None:
+                continue
+            diff = np.abs(a.astype(np.float64) - b.astype(np.float64))
+            found[name, what] = (int((diff > 0).sum()), float(diff.max()))
+            parts.append(f"{what} {found[name, what][0]} of {diff.size} "
+                         f"differ, max |d| {found[name, what][1]:.3g}")
+        print(f"render {name} frames {frames} cuda vs cpu: "
+              + "; ".join(parts), flush=True)
+    return found
 
 
 def phase_dp(cache_dir):
@@ -2110,9 +2392,7 @@ def mapping_resumed(checkpoint, mapping, backend, g0, cache_dir):
     """Checkpoint/resume of the session's back-end: ``backend`` (its graph
     g0 before the solve, its snapshots and bookkeeping) through
     save_mapping into a fresh MappingBackend by restore_mapping, then one
-    solve of each graph: bit-equal.  The pose graph's index_add_ adds in
-    atomic order on CUDA, so these two solves run under PyTorch's
-    deterministic algorithms (any op without one is printed)."""
+    solve of each graph in PyTorch's default mode: bit-equal."""
     import torch
 
     ckpt = os.path.join(os.path.dirname(cache_dir), "node_ckpt",
@@ -2134,25 +2414,17 @@ def mapping_resumed(checkpoint, mapping, backend, g0, cache_dir):
                 if k not in restored.snapshots or not all(
                     torch.equal(a, b) for a, b in zip(
                         restored.snapshots[k], backend.snapshots[k]))]
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        try:
-            g_a, chi2_a = mapping.optimize_graph(g0, None, **BACKEND_SOLVE)
-            chi2_b = restored.optimize(**BACKEND_SOLVE)
-        finally:
-            torch.use_deterministic_algorithms(False)
+    g_a, chi2_a = mapping.optimize_graph(g0, None, **BACKEND_SOLVE)
+    chi2_b = restored.optimize(**BACKEND_SOLVE)
     solved = [f for f in mapping.KeyframeGraph._fields
               if not torch.equal(getattr(restored.graph, f),
                                  getattr(g_a, f))]
-    notes = sorted({str(w.message)[:160] for w in caught})
     print(f"backend: save_mapping -> restore_mapping: graph and "
           f"{len(restored.snapshots)} snapshots "
           f"{'bit-equal' if not unequal else f'differ: {unequal}'}; one "
-          f"solve each (deterministic algorithms): "
+          f"solve each (default mode): "
           f"{'bit-equal' if not solved else f'differs in {solved}'}, chi2 "
-          f"{float(chi2_a):.9g} / {chi2_b:.9g}; warnings: "
-          f"{notes or 'none'}", flush=True)
+          f"{float(chi2_a):.9g} / {chi2_b:.9g}", flush=True)
     if unequal or solved or float(chi2_a) != chi2_b:
         fail(f"backend: the restored mapping is not bit-equal "
              f"({unequal}, {solved})")
@@ -2592,10 +2864,13 @@ def kernel_entry(name, source, replaces, launches, tot):
             "replaces": replaces, "launches": launches,
             "max_abs_err": tot["max_abs_err"], "ms": tot["ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-            "bound_by": tot["bound_by"], "library_ms": None}
+            "bound_by": tot["bound_by"],
+            "library_ms": tot.get("library_ms")}
 
 
 def main():
+    if sys.argv[1:2] == ["--k3-device-us"]:
+        return k3_device_us(sys.argv[2])
     t_start = time.perf_counter()
     try:
         import torch
@@ -2616,6 +2891,7 @@ def main():
         from visfs_tpu_torch.ops.kernels import _build
         from visfs_tpu_torch.ops.kernels import lk_level as k1_mod
         from visfs_tpu_torch.ops.kernels import lk_xcorr as k2_mod
+        from visfs_tpu_torch.ops.kernels import segment_sum as k3_mod
         from visfs_tpu_torch.slam.system import System
     except ImportError as e:
         fail(f"visfs_tpu_torch is not importable here: {e}")
@@ -2625,19 +2901,20 @@ def main():
         fail(f"the port imported {sorted(bad)[:5]}")
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        builds = [pool.submit(m.build) for m in (k1_mod, k2_mod)]
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        builds = [pool.submit(m.build) for m in (k1_mod, k2_mod, k3_mod)]
         for f in builds:
             f.result()
     for lib, src in (("visfs_lk_level", "lk_level.cu"),
-                     (k2_mod.LIB_NAME, "lk_xcorr.cu")):
+                     (k2_mod.LIB_NAME, "lk_xcorr.cu"),
+                     (k3_mod.LIB_NAME, "segment_sum.cu")):
         log, build_s = _build.build_info(lib)
         ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln
                  or "spill" in ln]
         print(f"build: {src} in {build_s:.1f} s; ptxas: {' | '.join(ptxas)}",
               flush=True)
-    print(f"build: both libraries loaded {time.perf_counter() - t0:.1f} s "
-          f"after the parallel start", flush=True)
+    print(f"build: the three libraries loaded {time.perf_counter() - t0:.1f} "
+          f"s after the parallel start", flush=True)
 
     cache_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "build", "sim_cache")
@@ -2660,6 +2937,8 @@ def main():
         t = time.perf_counter()
         out = fn(*a, **kw)
         times[name] = round(time.perf_counter() - t, 1)
+        print(f"phase {name}: {times[name]} s "
+              f"({time.perf_counter() - t_start:.1f} s in all)", flush=True)
         return out
 
     k1_tot = timed_phase("k1", phase_k1, seq, k1_mod)
@@ -2674,6 +2953,10 @@ def main():
     timed_phase("fleet", phase_fleet, seq, System, on_k1, ate_rmse)
     timed_phase("s3", phase_s3, System, cached_textured_sequence, cache_dir,
                 on_k1, ate_rmse)
+    timed_phase("s4", phase_s3, System, cached_textured_sequence, cache_dir,
+                on_k1, ate_rmse, label="s4", params=s4_params(WIDTH),
+                probes=False, ate_gate=S4_ATE_BOUND,
+                map_exempt=S4_MAP_EXEMPT, reference=S4_REFERENCE)
     timed_phase("mapping", phase_s3, System, cached_textured_sequence,
                 cache_dir, on_k1, ate_rmse, label="mapping",
                 params=SIM_MAPPING, probes=False, frames=MODE_FRAMES)
@@ -2689,8 +2972,10 @@ def main():
                 cache_dir)
     timed_phase("clahe", phase_clahe, seq)
     timed_phase("cull", phase_cull)
-    timed_phase("backend", phase_backend, cached_textured_sequence,
-                cache_dir, ate_rmse, on_k1)
+    timed_phase("render", phase_render, cache_dir)
+    _, k3_launches, k3_tot = timed_phase(
+        "backend", phase_backend, cached_textured_sequence, cache_dir,
+        ate_rmse, on_k1)
     timed_phase("node", phase_node, cached_textured_sequence, cache_dir,
                 ate_rmse, on_k1)
     dp_launches = timed_phase("dp", phase_dp, cache_dir)
@@ -2708,8 +2993,12 @@ def main():
                      main_launches[k1_pyr] + dp_launches, k1_tot),
         kernel_entry("lk_xcorr_pyramid", "visfs_tpu_torch/csrc/lk_xcorr.cu",
                      "visfs_tpu/ops/pallas/lk_xcorr.py:96",
-                     xcorr_launches[k2_pyr], k2_tot)]}), flush=True)
-    print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
+                     xcorr_launches[k2_pyr], k2_tot),
+        kernel_entry("segment_sum", "visfs_tpu_torch/csrc/segment_sum.cu",
+                     "visfs_tpu/parallel/pose_graph.py:93",
+                     k3_launches, k3_tot)]}), flush=True)
+    print(f"total: {time.perf_counter() - t_start:.1f} s at main "
+          f"{LOOP_FPS['main']:.2f} fps", flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,6 +16,12 @@ frame and at this width the JAX package's VO loses 7 frames a robot at
 the first corner (--frames 160 shows it).
 
     JAX_PLATFORMS=cpu python reference_backend.py [--frames 240]
+        [--robot-frames N]
+
+--robot-frames N drives each robot over the first N frames of its lap
+(robot 0 frames 0..N-1, robot 1 frames FRAMES // 2 .. FRAMES // 2 + N - 1,
+from its start pose there): the same scene and corner rate at fewer
+frames (chip_smoke.py's phase backend runs N = 60).
 
 Prints one JSON line: per robot the VO ATE over its frames after the
 bootstrap frame (robot 1 lifted by its start pose) and its lost frames,
@@ -57,8 +63,12 @@ def main():
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=240)
-    n_frames = ap.parse_args().frames
+    ap.add_argument("--robot-frames", type=int, default=None)
+    args = ap.parse_args()
+    n_frames = args.frames
     lap = n_frames // 2
+    n_robot = lap if args.robot_frames is None else args.robot_frames
+    robot_frames = (range(0, n_robot), range(lap, lap + n_robot))
 
     import jax
 
@@ -91,14 +101,14 @@ def main():
             return out
 
         s.output_odometry_info = recorded
-    for k in range(n_frames):
-        r = 0 if k < lap else 1
-        session.input_primary_sensor_data(r, float(seq.stamps[k]),
-                                          seq.left[k], seq.right[k])
+    for r, frames in enumerate(robot_frames):
+        for k in frames:
+            session.input_primary_sensor_data(r, float(seq.stamps[k]),
+                                              seq.left[k], seq.right[k])
     session.finish()
 
     robots = []
-    for r, frames in ((0, range(0, lap)), (1, range(lap, n_frames))):
+    for r, frames in enumerate(robot_frames):
         outs = vo[r][1:]
         est = np.stack([session.start_poses[r] @ np.asarray(o.pose)
                         for o in outs])
@@ -137,7 +147,7 @@ def main():
     chi2 = session.optimize(**SOLVE)
     err_after = keyframe_error(session.poses(), backend.graph, seq)
     print(json.dumps({
-        "frames": n_frames, "robots": robots,
+        "frames": n_frames, "robot_frames": n_robot, "robots": robots,
         "keyframes": session.keyframe_counts(),
         "nodes": int(g.n_nodes), "edges": int(g.n_edges),
         "candidates": len(candidates), "decided": decided,

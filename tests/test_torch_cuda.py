@@ -414,6 +414,87 @@ def test_pose_graph_optimize_on_cuda_has_no_host_sync():
     assert float(chi2_c) < 1e-3
 
 
+def _graph_with_closures(device):
+    """A drifting square loop of 40 keyframes in a MappingBackend of 64
+    nodes and 512 edge slots (most of them masked), with two loop closures
+    (end to start, middle to start): pose 0 has 3 edges, poses have edges
+    on both sides."""
+    from visfs_tpu_torch.slam.mapping import MappingBackend
+
+    rng = np.random.default_rng(3)
+    n, side = 40, 10
+    gt, est = [], []
+    drift = np.eye(4)
+    for k in range(n):
+        leg, s = divmod(k, side)
+        yaw = 0.5 * np.pi * leg
+        x, y = [(s, 0), (side, s), (side - s, side), (0, side - s)][leg]
+        T = np.eye(4)
+        T[:2, :2] = [[np.cos(yaw), -np.sin(yaw)], [np.sin(yaw), np.cos(yaw)]]
+        T[:2, 3] = (0.5 * x, 0.5 * y)
+        gt.append(T)
+        if k:
+            step = np.linalg.inv(gt[k - 1]) @ T
+            step[:2, 3] += rng.normal(0, 0.015, 2)
+            drift = drift @ step
+        est.append(drift.copy())
+    backend = MappingBackend(None, max_nodes=64, max_edges=512,
+                             device=device)
+    for k in range(n):
+        backend.add_keyframe(est[k].astype(np.float32), float(k))
+    for j in (n - 1, n // 2):
+        backend.add_loop_closure(0, j, (np.linalg.inv(gt[0]) @ gt[j]).astype(
+            np.float32), info=1e5)
+    return backend.graph
+
+
+@pytest.mark.parametrize("shape", [(6,), (6, 6)])
+def test_segment_sum_kernel_bit_equal_to_plain_version(shape):
+    """K3 (the pose graph's fixed-order per-pose sum) on a graph with
+    closures and masked edges: bit-equal to its plain version on the CPU
+    (index_add_ in order), one launch counted; tolerance 0."""
+    _require_gpu()
+    from visfs_tpu_torch.ops.kernels import segment_sum as k3
+
+    g = _graph_with_closures("cuda")
+    n = g.pose_q.shape[0]
+    seg = k3.segments(g.edge_i, g.edge_j, g.edge_valid, n)
+    rng = np.random.default_rng(len(shape))
+    w = g.edge_valid.float().cpu().reshape((-1, 1) + (1,) * len(shape))
+    terms = torch.from_numpy(rng.normal(
+        size=(g.edge_i.shape[0], 2) + shape).astype(np.float32)) * w
+    before = k3.LAUNCHES
+    out = k3.segment_sum(terms.cuda(), seg, n)
+    assert k3.LAUNCHES == before + 1
+    host = k3.segment_sum_reference(
+        terms, k3.Segments(*(x.cpu() for x in seg)), n)
+    assert torch.equal(out.cpu().view(torch.int32), host.view(torch.int32))
+
+
+def test_optimize_graph_default_mode_solves_are_bit_equal():
+    """Two optimize_graph solves of one graph with closures on "cuda", with
+    PyTorch's deterministic algorithms off before and after: bit-equal,
+    with no host sync; within 1e-4 of the solve on "cpu"."""
+    _require_gpu()
+    from visfs_tpu_torch.slam.mapping import KeyframeGraph, optimize_graph
+
+    assert not torch.are_deterministic_algorithms_enabled()
+    g = _graph_with_closures("cuda")
+    with _NoHostSync():
+        a, chi2_a = optimize_graph(g, None, iterations=10, cg_iters=60)
+        b, chi2_b = optimize_graph(g, None, iterations=10, cg_iters=60)
+    assert not torch.are_deterministic_algorithms_enabled()
+    for f in KeyframeGraph._fields:
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert torch.equal(chi2_a, chi2_b)
+    host, _ = optimize_graph(KeyframeGraph(*(x.cpu() for x in g)), None,
+                             iterations=10, cg_iters=60)
+    np.testing.assert_allclose(a.pose_t.cpu().numpy(), host.pose_t.numpy(),
+                               atol=1e-4)
+    np.testing.assert_allclose(a.pose_q.cpu().numpy(), host.pose_q.numpy(),
+                               atol=1e-4)
+
+
 def test_verify_loop_on_cuda_has_no_host_sync(seq):
     """verify_loop on two keyframe snapshots of the System on "cuda" with no
     host sync; on "cpu" from the same snapshots and key: identical ok,

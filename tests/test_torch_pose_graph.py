@@ -129,3 +129,81 @@ def test_square_backend_matches_reference(square):
     np.testing.assert_allclose(port.graph.pose_q[:n].numpy(), g_r.pose_q[:n],
                                atol=1e-4)
     np.testing.assert_allclose(chi2, chi2_r, rtol=1e-3)
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+def _walk(terms, seg, n):
+    """csrc/segment_sum.cu's walk in PyTorch: for each pose, starting from
+    +0, its rows[start[p]:start[p+1]] added one at a time in order (a
+    finished run adds +0, which changes no sum that starts at +0)."""
+    e = seg.i.shape[0]
+    flat = terms.reshape(2 * e, -1)
+    acc = torch.zeros((n, flat.shape[1]), dtype=terms.dtype)
+    count = seg.start[1:] - seg.start[:-1]
+    for k in range(int(count.max()) if n else 0):
+        live = k < count
+        row = seg.rows[torch.where(live, seg.start[:-1] + k, 0)]
+        acc = acc + torch.where(live[:, None], flat[row],
+                                torch.zeros((), dtype=terms.dtype))
+    return acc.reshape((n,) + terms.shape[2:])
+
+
+def _graph_with_closures(name, circle, square):
+    """The circle (three closures, pose 0 with three edges, padded with
+    masked edges) or the square loop's MappingBackend graph (two closures,
+    512 edge slots, most of them masked)."""
+    if name == "circle":
+        return _torch_graph(circle[0])
+    g = square[3].graph
+    return tpg.PoseGraph(g.pose_q, g.pose_t, ~g.valid, g.edge_i, g.edge_j,
+                         g.edge_q, g.edge_t, g.edge_info, g.edge_valid)
+
+
+@pytest.mark.parametrize("shape", [(6,), (6, 6)])
+@pytest.mark.parametrize("name", ["circle", "square"])
+def test_scatter_fixed_order_bit_equal_to_index_add(name, shape, circle,
+                                                     square):
+    """_scatter (the fixed-order per-pose sum) with deterministic algorithms
+    off, on a graph where poses have 3 edges or more on both sides, is bit
+    for bit the old order, written out here: index_add_ of the from-side
+    terms, then of the to-side terms; so is the card kernel's walk of the
+    per-graph layout.  A masked edge's terms are its weight's 0 times a
+    term (signed zeros included)."""
+    assert not torch.are_deterministic_algorithms_enabled()
+    graph = _graph_with_closures(name, circle, square)
+    n = graph.pose_q.shape[0]
+    _, edges = tpg._shard_edges(graph, None)
+    i, j = graph.edge_i.long(), graph.edge_j.long()
+    mask = graph.edge_mask
+    degree = torch.bincount(i[mask], minlength=n) + torch.bincount(
+        j[mask], minlength=n)
+    assert int(degree.max()) >= 3
+    assert bool(((torch.bincount(i[mask], minlength=n) > 0)
+                 & (torch.bincount(j[mask], minlength=n) > 0)).any())
+    rng = np.random.default_rng(len(shape))
+    w = mask.to(torch.float32).reshape((-1,) + (1,) * len(shape))
+    vi, vj = (torch.from_numpy(rng.normal(size=(len(i),) + shape).astype(
+        np.float32)) * w for _ in range(2))
+    got = tpg._scatter(n, edges, vi, vj, None)
+    old = torch.zeros((n,) + shape).index_add_(0, i, vi).index_add_(0, j, vj)
+    assert torch.equal(_bits(got), _bits(old))
+    walked = _walk(torch.stack((vi, vj), 1), edges, n)
+    assert torch.equal(_bits(walked), _bits(old))
+    assert not torch.are_deterministic_algorithms_enabled()
+
+
+@pytest.mark.parametrize("name", ["circle", "square"])
+def test_solve_through_the_kernels_walk_is_bit_equal(name, circle, square,
+                                                     monkeypatch):
+    """The whole solve with the card kernel's walk in place of the CPU's
+    index_add_ pair (the solve's own per-edge terms, masked edges
+    included) gives the same bits: poses and chi2."""
+    graph = _graph_with_closures(name, circle, square)
+    want = tpg.optimize(graph, None, iterations=3, cg_iters=20)
+    monkeypatch.setattr(tpg, "segment_sum", _walk)
+    got = tpg.optimize(graph, None, iterations=3, cg_iters=20)
+    for a, b in zip(got, want):
+        assert torch.equal(_bits(a), _bits(b))

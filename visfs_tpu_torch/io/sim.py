@@ -471,6 +471,71 @@ def _scan_world(pose, room, pillars, n_beams, rng, noise=0.0):
     return np.stack([rx, ry, np.zeros_like(rx)], axis=-1).astype(np.float32)
 
 
+def _room_views(rng, cam, n_frames, fps, room, z_floor, z_ceil, n_pillars,
+                motion, loops, speed):
+    """The textured room's trajectory (shifted so pose 0 is the origin), its
+    planes and pillars (drawn from rng) and each frame's two view origins
+    and rotations: (xs, ys, yaws, room, poses, planes, pillars, origins
+    [T, 2, 3], rots [T, 3, 3])."""
+    xs, ys, yaws = _trajectory(motion, n_frames, fps, room, loops, speed)
+    # Odometry starts at identity: shift the world so pose 0 is the origin.
+    x_off, y_off = float(xs[0]), float(ys[0])
+    if x_off or y_off:
+        if abs(yaws[0]) >= 1e-9:
+            raise ValueError("trajectory must start with yaw 0")
+        xs, ys = xs - x_off, ys - y_off
+        room = (room[0] - x_off, room[1] - x_off, room[2] - y_off,
+                room[3] - y_off)
+    poses = _poses_from_xyyaw(xs, ys, yaws)
+    planes, pillars = _make_world(rng, room, z_floor, z_ceil, n_pillars,
+                                  np.stack([xs, ys], -1))
+
+    t_ri = cam.t_ri.cpu().numpy().astype(np.float64)
+    baseline = float(cam.baseline)
+    origins = np.empty((n_frames, 2, 3), np.float64)
+    rots = np.empty((n_frames, 3, 3), np.float64)
+    for i in range(n_frames):
+        t_wi = poses[i].astype(np.float64) @ t_ri
+        rots[i] = t_wi[:3, :3]
+        origins[i, 0] = t_wi[:3, 3]
+        origins[i, 1] = t_wi[:3, 3] + rots[i] @ np.array([baseline, 0.0, 0.0])
+    return xs, ys, yaws, room, poses, planes, pillars, origins, rots
+
+
+def render_textured_views(
+    frames, n_frames: int = 300, width: int = 320, height: int = 240,
+    motion: str = "square", seed: int = 0, fps: float = 10.0,
+    room: tuple = (-3.0, 18.0, -8.0, 8.0), z_floor: float = -0.6,
+    z_ceil: float = 1.4, n_pillars: int = 6, loops: float = 1.0,
+    speed: float | None = None, with_laser: bool = False, n_beams: int = 180,
+    laser_noise: float = 0.0, device="cuda",
+):
+    """The ray casts and scans of generate_textured_sequence's frames
+    ``frames`` on ``device``, before exposure, pixel noise and quantization
+    (host numpy, the same on every device): (views [F, 2, H, W] in [0, 1]
+    as float64 of the float32 render, left z-depth [F, H, W], scans [F,
+    n_beams, 3] or None).  Noisy scans draw from the stream after the
+    images' noise, so laser_noise must be 0."""
+    if with_laser and laser_noise:
+        raise ValueError("render_textured_views: laser_noise must be 0")
+    rng = np.random.default_rng(seed)
+    cam = default_camera(width, height, device)
+    _, _, _, room, poses, planes, pillars, origins, rots = _room_views(
+        rng, cam, n_frames, fps, room, z_floor, z_ceil, n_pillars, motion,
+        loops, speed)
+    frames = list(frames)
+    imgs, deps = _render_views(planes, origins[frames].reshape(-1, 3),
+                               np.repeat(rots[frames], 2, axis=0),
+                               float(cam.fx), float(cam.fy), float(cam.cx),
+                               float(cam.cy), width, height, device)
+    scans = None
+    if with_laser:
+        scans = np.stack([_scan_world(poses[i], room, pillars, n_beams, rng)
+                          for i in frames])
+    return (imgs.reshape(len(frames), 2, height, width),
+            deps[0::2].astype(np.float32), scans)
+
+
 def generate_textured_sequence(
     n_frames: int = 300, width: int = 320, height: int = 240,
     motion: str = "square", seed: int = 0, fps: float = 10.0,
@@ -489,33 +554,13 @@ def generate_textured_sequence(
     hit)."""
     rng = np.random.default_rng(seed)
     cam = default_camera(width, height, device)
-    xs, ys, yaws = _trajectory(motion, n_frames, fps, room, loops, speed)
-    # Odometry starts at identity: shift the world so pose 0 is the origin.
-    x_off, y_off = float(xs[0]), float(ys[0])
-    if x_off or y_off:
-        if abs(yaws[0]) >= 1e-9:
-            raise ValueError("trajectory must start with yaw 0")
-        xs, ys = xs - x_off, ys - y_off
-        room = (room[0] - x_off, room[1] - x_off, room[2] - y_off,
-                room[3] - y_off)
-    poses = _poses_from_xyyaw(xs, ys, yaws)
-    planes, pillars = _make_world(rng, room, z_floor, z_ceil, n_pillars,
-                                  np.stack([xs, ys], -1))
-
-    t_ri = cam.t_ri.cpu().numpy().astype(np.float64)
-    fx, fy = float(cam.fx), float(cam.fy)
-    cx, cy = float(cam.cx), float(cam.cy)
-    baseline = float(cam.baseline)
-    origins = np.empty((n_frames, 2, 3), np.float64)
-    rots = np.empty((n_frames, 3, 3), np.float64)
-    for i in range(n_frames):
-        t_wi = poses[i].astype(np.float64) @ t_ri
-        rots[i] = t_wi[:3, :3]
-        origins[i, 0] = t_wi[:3, 3]
-        origins[i, 1] = t_wi[:3, 3] + rots[i] @ np.array([baseline, 0.0, 0.0])
+    xs, ys, yaws, room, poses, planes, pillars, origins, rots = _room_views(
+        rng, cam, n_frames, fps, room, z_floor, z_ceil, n_pillars, motion,
+        loops, speed)
     imgs, deps = _render_views(planes, origins.reshape(-1, 3),
-                         np.repeat(rots, 2, axis=0), fx, fy, cx, cy, width,
-                         height, device)
+                               np.repeat(rots, 2, axis=0), float(cam.fx),
+                               float(cam.fy), float(cam.cx), float(cam.cy),
+                               width, height, device)
 
     gain, bias = 1.0, 0.0
     lefts, rights = [], []
@@ -593,9 +638,11 @@ def cached_textured_sequence(cache_dir=None, **kwargs) -> SimSequence:
         laser_scans=seq.laser_scans, room=np.asarray(seq.room))
     if seq.depth is not None:  # float32 metres, not quantized
         extra["depth"] = seq.depth
-    np.savez_compressed(tmp, left=left, right=right, stamps=seq.stamps,
-                        poses=seq.poses, wheel_odom=seq.wheel_odom,
-                        points=seq.points, **extra)
+    # uncompressed: compressing a VGA sequence with its depth takes seconds,
+    # and the cache serves one run's phases
+    np.savez(tmp, left=left, right=right, stamps=seq.stamps,
+             poses=seq.poses, wheel_odom=seq.wheel_odom, points=seq.points,
+             **extra)
     os.replace(tmp, path)
     return seq._replace(left=left.astype(np.float32),
                         right=right.astype(np.float32))

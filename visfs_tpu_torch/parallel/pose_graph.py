@@ -7,22 +7,32 @@ split over the mesh's ranks, a contiguous block each (shard_map's split):
   * Gauss-Newton with the relative-pose factor (solver/factors.py) and a
     Huber weight;
   * the sparse normal system is never built: a matrix-free preconditioned
-    conjugate gradient runs with per-edge gathers and ``index_add_``
-    scatters, the per-edge terms made on the rank's edges;
+    conjugate gradient runs with per-edge gathers and per-pose sums, the
+    per-edge terms made on the rank's edges;
   * a block-Jacobi preconditioner (6x6 per pose) whose blocks are
     inverted in closed form (``solve6x6_spd``): the reference's
     ``jnp.linalg.inv`` would be a batched LU, and no step here waits for
     the host.
 
+Each per-pose sum adds a pose's terms in one fixed order on every device
+(``ops/kernels/segment_sum.py``: on the card a kernel walks each pose's
+terms, laid out once per graph; on the CPU ``index_add_``): its from-side
+terms in edge order, then its to-side terms.  ``index_add_`` on the card
+would add in atomic order, and a graph with closures (poses of 3 edges or
+more) turns that last-bit difference into ~1e-4 m after the CG; so two
+solves of one graph give one answer with no global flag.
+
 Where the reference psums each rank's per-pose partial sums (the
 gradient, the preconditioner, every CG matvec, chi2), each rank here
 all-gathers the ranks' per-edge terms (one ``all_gather`` a scatter,
 skipped for a mesh of one) and adds all of them in the one-rank solve's
-order.  A sum of partials would associate a pose's terms differently from
-the one-rank solve, and a graph with closures (poses of 3 edges or more)
-turns that last-bit difference into ~1e-4 m after the CG; so under
-deterministic algorithms the sharded solve equals the one-rank solve.  The
-loops run a fixed count with no data-dependent exit.
+order: a sum of partials would associate a pose's terms differently.  So
+the sharded solve equals the one-rank solve wherever the ranks' per-edge
+terms equal the whole graph's: on the CPU, and on an H100 at 256 edges a
+rank; at 128 the batched matrix-vector product (aten.bmm) that
+torch.einsum makes of w J^T r rounds otherwise than for the 512-edge
+graph (tools/torch_pose_graph_probe.py).  The loops run a fixed count
+with no data-dependent exit.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..ops.kernels.segment_sum import Segments, segment_sum, segments
 from ..solver.factors import (apply_tangent, huber_weight,
                               pose_link_jacobians, pose_link_residual,
                               solve6x6_spd)
@@ -64,37 +75,27 @@ def _edge_terms(g: PoseGraph, pose_q, pose_t, huber_delta):
     return r, Ji, Jj, w, chi2
 
 
-class _Edges(NamedTuple):
-    """Every edge's pose indices (int64): where each rank adds the
-    gathered per-edge terms."""
-
-    i: torch.Tensor  # [E]
-    j: torch.Tensor  # [E]
-
-
-def _scatter(n: int, edges: _Edges, vi, vj, group):
+def _scatter(n: int, edges: Segments, vi, vj, group):
     """Per-pose sums of the edges' from- and to-side terms: the ranks'
-    terms gathered in edge order, then added on every rank as the one-rank
-    solve adds them."""
-    both = all_gather(torch.stack((vi, vj), 1), group)
-    out = vi.new_zeros((n,) + vi.shape[1:])
-    return out.index_add_(0, edges.i, both[:, 0]).index_add_(
-        0, edges.j, both[:, 1])
+    terms gathered in edge order, then added on every rank in the fixed
+    order."""
+    return segment_sum(all_gather(torch.stack((vi, vj), 1), group), edges, n)
 
 
 def _shard_edges(graph: PoseGraph, mesh: Optional[Mesh]):
-    """This rank's edges (indices as int64), the poses whole; and every
-    edge's indices."""
+    """This rank's edges (indices as int64), the poses whole; and where
+    every edge's terms are added (laid out once per graph)."""
     group = None if mesh is None else mesh.group
     e = {f: shard(getattr(graph, f), group) for f in PoseGraph._fields
          if f.startswith("edge_")}
     e["edge_i"] = e["edge_i"].long()
     e["edge_j"] = e["edge_j"].long()
-    return graph._replace(**e), _Edges(graph.edge_i.long(),
-                                       graph.edge_j.long())
+    return graph._replace(**e), segments(graph.edge_i, graph.edge_j,
+                                         graph.edge_mask,
+                                         graph.pose_q.shape[0])
 
 
-def _gn_step(g: PoseGraph, edges: _Edges, group, huber_delta, lam,
+def _gn_step(g: PoseGraph, edges: Segments, group, huber_delta, lam,
              cg_iters):
     """One Gauss-Newton step on a rank's edge shard: (q, t, chi2)."""
     N = g.pose_q.shape[0]

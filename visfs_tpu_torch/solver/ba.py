@@ -110,12 +110,13 @@ def _link_terms(problem: BAProblem, pose_q, pose_t):
             problem.link_t)
 
 
-def _laser_terms(problem: BAProblem, pose_q, pose_t):
-    """(r [K], J [K, 6], w [K]) of the scan points on the newest pose."""
+def _laser_terms(problem: BAProblem, pose_q, pose_t, jacobian=True):
+    """(r [K], J [K, 6] or None, w [K]) of the scan points on the newest
+    pose."""
     la = problem.laser
     return occupied_space_terms(pose_q[-1], pose_t[-1], la.points, la.mask,
                                 la.cost_grid, la.resolution, la.max_x,
-                                la.max_y, la.t_ir, la.info)
+                                la.max_y, la.t_ir, la.info, jacobian=jacobian)
 
 
 def _robust_chi2_total(problem: BAProblem, lm_pos, pose_q, pose_t,
@@ -136,7 +137,7 @@ def _robust_chi2_total(problem: BAProblem, lm_pos, pose_q, pose_t,
         r_link * r_link, dim=-1)
     total = total + torch.sum(link_chi2 * problem.link_mask)
     if problem.laser is not None:
-        r_l, _, w_l = _laser_terms(problem, pose_q, pose_t)
+        r_l, _, w_l = _laser_terms(problem, pose_q, pose_t, jacobian=False)
         total = total + torch.sum(w_l * r_l * r_l)
     return total
 

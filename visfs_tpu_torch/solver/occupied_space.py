@@ -11,19 +11,26 @@ and the grid is read at
     row = (max_x - P.x)/res - 0.5, col = (max_y - P.y)/res - 0.5
 (out-of-grid taps read kMaxCorrespondenceCost).
 
-The reference takes the pose-tangent Jacobian by ``jax.value_and_grad``;
-here it is in closed form: the cubic weights' derivatives give the cost's
-gradient in (row, col), and the tangent update (t += dt, q = deltaQ(dw) q)
-moves the world point by dP/ddt = -R^T and dP/ddw = R^T [P_img - t]x,
-R = R(q).  tests/test_torch_laser.py holds it against both the reference's
-autodiff and torch.func.
+The pose-tangent Jacobian is taken as the reference takes it, by
+differentiating the residual through the tangent update (t += dt, q =
+deltaQ(dw) q) with ``torch.autograd`` where the reference uses
+``jax.value_and_grad``, so it rounds as the reference's does.  A closed
+form (dP/ddt = -R^T, dP/ddw = R^T [P_img - t]x) is exact where the
+autodiff leaves float32 residues: at an axis-aligned pose its three
+out-of-plane columns are exactly 0 where the autodiff's are not.  On a
+frame with no odometry link those columns are all that the Hessian holds
+in the out-of-plane dofs, so the Levenberg-Marquardt step there is huge
+(then dropped whole by the step guard) or 0 (a planar step), and the pose
+after the BA differs by centimetres (tests/test_torch_laser.py::
+test_first_laser_frame_matches_reference).  tests/test_torch_laser.py
+holds the Jacobian against the reference's autodiff.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..core.lie import fma, quat_conj, quat_normalize, quat_to_mat, skew
+from ..core.lie import fma, quat_conj
 from ..map2d.probability_values import MAX_CORRESPONDENCE_COST
 
 def _cubic_weights(t):
@@ -35,13 +42,6 @@ def _cubic_weights(t):
                         1.5 * t3 - 2.5 * t2 + 1.0,
                         -1.5 * t3 + 2.0 * t2 + 0.5 * t,
                         0.5 * t3 - 0.5 * t2], dim=-1)
-
-
-def _cubic_weights_grad(t):
-    """d/dt of _cubic_weights, [..., 4]."""
-    t2 = t * t
-    return torch.stack([-1.5 * t2 + 2.0 * t - 0.5, 4.5 * t2 - 5.0 * t,
-                        -4.5 * t2 + 4.0 * t + 0.5, 1.5 * t2 - t], dim=-1)
 
 
 def _patch(cost_grid, rr, cc):
@@ -82,7 +82,8 @@ def _cross_fused(a, b):
 
 
 def _world_points(pose_q, pose_t, p_robot, t_ir):
-    """(P_img, P_world) [K, 3] of robot-frame points under Tcw.  The
+    """(P_img, P_world) [K, 3] of robot-frame points under Tcw (one pose,
+    or one a point: pose_q [K, 4], pose_t [K, 3]).  The
     rotation is lie.quat_rotate's formula with the reference's compiled
     roundings (fused cross products and w*uv + uuv): the grid coordinates
     scale the point by 1/resolution, so an ulp of the point is ~1e-6 of
@@ -90,9 +91,10 @@ def _world_points(pose_q, pose_t, p_robot, t_ir):
     p_img = (t_ir[:3, :3] @ p_robot[..., None])[..., 0] + t_ir[:3, 3]
     qi = quat_conj(pose_q)
     v = p_img - pose_t
-    u = qi[1:4].expand_as(v)
+    u = qi[..., 1:4].expand_as(v)
     uv = _cross_fused(u, v)
-    return p_img, v + 2.0 * fma(qi[0].expand_as(uv), uv, _cross_fused(u, uv))
+    return p_img, v + 2.0 * fma(qi[..., :1].expand_as(uv), uv,
+                                _cross_fused(u, uv))
 
 
 def occupied_space_residual(pose_q, pose_t, p_robot, cost_grid, resolution,
@@ -106,30 +108,26 @@ def occupied_space_residual(pose_q, pose_t, p_robot, cost_grid, resolution,
 
 def occupied_space_terms(pose_q, pose_t, points_robot, points_mask,
                          cost_grid, resolution, max_x, max_y, t_ir,
-                         info_weight):
+                         info_weight, jacobian=True):
     """Residuals + pose-tangent Jacobians for all scan points.
 
     Returns (r [K], J [K, 6], w [K]); J is wrt the BA tangent update
     (t += dt, q = deltaQ(dw) q) of the newest pose, the reference's
-    (dt, dw) order, taken where the reference takes it: at the zero update,
-    whose q is normalized."""
-    pose_q = quat_normalize(pose_q)
-    p_img, p_world = _world_points(pose_q, pose_t, points_robot, t_ir)
-    rr = (max_x - p_world[:, 0]) / resolution - 0.5
-    cc = (max_y - p_world[:, 1]) / resolution - 0.5
-    patch, fr, fc = _patch(cost_grid, rr, cc)
-    wr, wc = _cubic_weights(fr), _cubic_weights(fc)
-    r = _bilinear_form(wr, patch, wc)
-    dr_drr = _bilinear_form(_cubic_weights_grad(fr), patch, wc)
-    dr_dcc = _bilinear_form(wr, patch, _cubic_weights_grad(fc))
-    # dr/dP_world = -(dr/drr, dr/dcc, 0) / res
-    zero = torch.zeros_like(dr_drr)
-    g = -torch.stack([dr_drr, dr_dcc, zero], dim=-1) / resolution  # [K, 3]
-    rt = quat_to_mat(pose_q).transpose(-1, -2)  # R^T
-    dp_ddt = -rt  # [3, 3]
-    dp_ddw = rt @ skew(p_img - pose_t)  # [K, 3, 3]
-    J = torch.cat([g @ dp_ddt, (g[:, None, :] @ dp_ddw)[:, 0]], dim=-1)
-    mask = points_mask[:, None]
+    (dt, dw) order, by autodiff at the zero update as the reference takes
+    it: each point its own zero update, so the gradient of the residuals'
+    sum holds each point's Jacobian in its row.  With jacobian=False, J is
+    None and r the same (the cost alone needs no backward pass)."""
+    from .factors import apply_tangent
+
+    with torch.enable_grad():
+        delta = torch.zeros((points_robot.shape[0], 6), dtype=pose_t.dtype,
+                            device=pose_t.device, requires_grad=jacobian)
+        q, t = apply_tangent(pose_q, pose_t, delta)
+        r = occupied_space_residual(q, t, points_robot, cost_grid,
+                                    resolution, max_x, max_y, t_ir)
+        J = torch.autograd.grad(r.sum(), delta)[0] if jacobian else None
+    r = torch.where(points_mask, r.detach(), torch.zeros_like(r))
     w = info_weight * points_mask.to(r.dtype)
-    return (torch.where(points_mask, r, torch.zeros_like(r)),
-            torch.where(mask, J, torch.zeros_like(J)), w)
+    if J is not None:
+        J = torch.where(points_mask[:, None], J, torch.zeros_like(J))
+    return r, J, w
