@@ -6,10 +6,10 @@ Phases (each prints its lines; any failure exits non-zero without the final
 ``ok`` line):
   1. device   — require CUDA (no CPU fallback), print the card's name and
                 power limit, turn TF32 off;
-  2. build    — compile the CUDA kernels from visfs_tpu_torch/csrc (K1, K2
-                and K3, the pose graph's fixed-order per-pose sum), one
-                nvcc per source, all started together; ptxas
-                registers/spills;
+  2. build    — compile the CUDA kernels from visfs_tpu_torch/csrc (K1, K2,
+                K3, the pose graph's fixed-order per-pose sum, and K4, its
+                per-edge products in one order), one nvcc per source, all
+                started together; ptxas registers/spills;
   3. k1       — the LK kernel (K1) against its plain PyTorch versions on
                 a 640x480 textured pair, N = 120 and N = 240 features:
                 its one-level entry on each of the four pyramid levels
@@ -45,39 +45,41 @@ Phases (each prints its lines; any failure exits non-zero without the final
                 yardstick of the map stage; the port never calls it); and
                 k1's 8-stream rows (gate 0.01 px);
   5. main     — the stereo VO main path: System(bench parameters,
-                device="cuda") over the 300-frame 640x480 textured square
-                loop rendered on the card (with its depth, for phase rgbd),
-                frames 0-1 then a timed loop over frames 2-299; gate ATE <=
+                device="cuda") over the first MAIN_FRAMES (120) frames of
+                the 300-frame 640x480 textured square loop rendered on the
+                card (with its depth, for phase rgbd), frames 0-1 then a
+                timed loop over frames 2-119; gate ATE <=
                 0.15 m, 0 lost, 2 launches of K1's pyramid entry (the
                 temporal and the stereo track), 0 of its one-level entry
                 and 0 of either K2 entry per frame, 0 host syncs; fps and a
                 stage split; then (profile) frames 2-11 of a fresh System
                 with profile_stages=True, each step as four synced stages,
                 the medians of the time_* fields printed, not gated;
-  6. xcorr    — the loop's first 40 frames with lk_params backend="jnp",
+  6. xcorr    — the loop's first 24 frames with lk_params backend="jnp",
                 iter_mode="xcorr" (the jnp level in correlation form): the
                 same gates with 2 launches of K2's pyramid entry, 0 of its
                 one-level entry and 0 of either K1 entry per frame;
   6b. fleet   — bench phase 3 (bench.py:160-187): FleetSystem(bench
-                parameters, 8 streams) on "cuda", 12 frames a stream from
+                parameters, 8 streams) on "cuda", 8 frames a stream from
                 offsets (k * 7) mod 260 of the main loop, frames 0-1 then
-                a timed loop over 2-11: exactly 2 K1 pyramid launches a
+                a timed loop over 2-7: exactly 2 K1 pyramid launches a
                 fleet frame for all 8 streams and 0 of every other entry,
                 0 host syncs, each stream's ATE <= 0.15 m and 0 lost; a
                 second pass bit-equal; streams 0 and 7 against Systems of
                 seeds 0 and 7, each frame stepped from the fleet's stream
                 state (1e-3 m, 1e-3 rad, identical lost flags); printed:
                 stream 0's System free running (the vmapped reductions
-                reassociate, and 12 frames amplify it), the aggregate fps
+                reassociate, and 8 frames amplify it), the aggregate fps
                 and its ratio to main's, kernels and kernel time a fleet
                 frame (profiler) beside one stream's;
   7. s3       — the reference bench's phase 4 (bench.py:187-262) at full
                 width: SensorStrategy 3 (stereo, laser, wheel, submap
-                building) over the 120-frame 640x480 textured square loop
-                (seed 1, 180-beam scans) rendered on the card, two 256x256
-                submap slots, 256 scan points, 520 raycast samples; each
-                frame's wheel rows in one batch before the frame and its
-                scan; frames 0-1 then a timed loop over frames 2-119; gate
+                building) over the first S3_LOOP_FRAMES (60) frames of the
+                120-frame 640x480 textured square loop (seed 1, 180-beam
+                scans) rendered on the card, two 256x256 submap slots, 256
+                scan points, 520 raycast samples; each frame's wheel rows in
+                one batch before the frame and its scan; frames 0-1 then a
+                timed loop over frames 2-59; gate
                 ATE <= 0.15 m, 0 lost, 2 launches of K1's pyramid entry and
                 0 of every other kernel entry per frame, 0 host syncs, and
                 the map (a live slot; the matching grid occupied within a
@@ -85,33 +87,38 @@ Phases (each prints its lines; any failure exits non-zero without the final
                 free-space probes); fps, a stage split, the submap
                 insertion's device time per call (profiler) and the kernels
                 a frame at strategies 0 and 3 (profiler);
-  7b. s4     — phase s3's loop and point at SensorStrategy 4 (the laser's
-                occupied-space terms in the BA, wheel rows, the submaps),
-                free running: ATE <= S4_ATE_BOUND (the JAX package's
-                one-ulp band, which straddles 0.15 m), 0 lost, 0 host
+  7b. s4     — phase s3's point at SensorStrategy 4 (the laser's
+                occupied-space terms in the BA, wheel rows, the submaps)
+                over the whole 120-frame loop, free running: ATE <=
+                S4_ATE_BOUND (the JAX package's one-ulp band, which
+                straddles 0.15 m), 0 lost, 0 host
                 syncs, 2 launches of K1's pyramid entry a frame and 0 of
                 every other entry, finite poses, and phase s3's map probes
                 but the one the JAX package's own map fails here
-                (S4_MAP_EXEMPT); the JAX package's figures printed;
+                (S4_MAP_EXEMPT); the JAX package's figures printed.  It
+                runs in a process of its own (`chip_smoke.py --s4
+                CACHE_DIR`) beside phases 11 to 12b, as phase dp does;
   8. mapping  — configs/sim_mapping.yaml's visfs block verbatim
                 (SensorStrategy 3 with CLAHE, NumRangeDataLimit 60,
-                MaxLaserRange 30) over the first 40 frames of phase s3's
+                MaxLaserRange 30) over the first 24 frames of phase s3's
                 sequence and feed, with phase s3's gates;
   9. loc_cull — configs/sim_localization.yaml's visfs block verbatim
                 (FlowBack off, 200 features) with Tracker/
                 CullByFundationMatrix and FundationPixelError 2.0 over the
-                main loop's first 40 frames: ATE <= 0.15 m, 0 lost,
+                main loop's first 24 frames: ATE <= 0.15 m, 0 lost,
                 exactly 2 one-way launches of K1's pyramid entry a frame
                 and 0 of every other entry, 0 host syncs (the cull's
                 sync-free eigensolvers); the features the cull rejects
                 each frame printed;
  10. rgbd     — the bench parameters with SensorStrategy 1, fed the left
-                images and the ray-cast depth of the main loop's first 40
+                images and the ray-cast depth of the main loop's first 24
                 frames: ATE <= 0.15 m, 0 lost, exactly 1 (bidirectional)
                 launch of K1's pyramid entry a frame (the temporal track;
                 depth replaces the stereo track) and 0 of every other
                 entry, 0 host syncs;
- 11. small    — the System on "cuda" and "cpu" over 6 frames at 160x120, at
+ 11. small    — the System on "cuda" and "cpu" over 6 frames at 160x120 (the
+                "cpu" runs in a process of their own, `chip_smoke.py
+                --small-cpu CACHE_DIR PATH`, beside the "cuda" runs), at
                 K1 (the System's default), xcorr, and the reference System's
                 own LK configuration (backend="jnp", direct iteration),
                 SensorStrategy 1 on the ray-cast depth, CLAHE, and
@@ -171,30 +178,41 @@ Phases (each prints its lines; any failure exits non-zero without the final
                 and 1e-4 rad); every solve in PyTorch's default mode, the
                 sync probe's, the profiled one and MultiRobotMapping.
                 optimize's bit-equal, with exactly 10 x (60 + 3) launches
-                of K3 in optimize; keyframes, candidates, closures, chi2
-                and the keyframe error before and after, the times and
-                kernels (profiler) of close_loops, one verify_loop and
-                optimize printed.  Then K3 against its plain version at
-                the solve's shapes (the first Gauss-Newton step's terms
-                of the session's graph, [E, 2, 6] and [E, 2, 6, 6]):
-                bit-equal to index_add_ on "cpu" (tolerance 0), its gap to
-                index_add_ on "cuda" (atomic order) printed, its device
-                time, the plain version's, one index_add_'s and the bound.
+                of K3 and as many of K4 in optimize; keyframes,
+                candidates, closures, chi2 and the keyframe error before
+                and after, the times and kernels (profiler) of
+                close_loops, one verify_loop and optimize (beside the
+                solve's kernels before K4) printed.  Then K3 against its
+                plain version at the solve's shapes (the first
+                Gauss-Newton step's terms of the session's graph, [E, 2,
+                6] and [E, 2, 6, 6]): bit-equal to index_add_ on "cpu"
+                (tolerance 0), its gap to index_add_ on "cuda" (atomic
+                order) printed, its device time, the plain version's, one
+                index_add_'s and the bound; and K4 on that step's inputs
+                (its gradient, blocks and the CG's matvec): bit-equal to
+                its order oracle on "cpu" (tolerance 0), each block of
+                256, 128 and 64 rows launched alone bit-equal to the
+                whole launch's rows (tolerance 0), the words differing
+                from the einsums on "cpu" (0 expected) and the largest
+                difference from the einsums on "cuda" (cuBLAS) printed,
+                its device time, the plain version's, the einsums' and
+                the bound.  K3's and K4's device times come from one
+                fresh process (chip_smoke.py --solve-device-us PATH).
  14. node     — the node (the robot's way of running the system, the
                 reference's ROS node): configs/sim_mapping.yaml's whole
                 operating point (node block: approx sync, queue 10, slop
                 0.01; visfs block) through VISFSAdapter with the native
                 sync runtime over a StaticTransport on "cuda", the frame
                 tree the sequence's own (identity) extrinsics, the baseline
-                from the camera info; the first 40 frames of phase s3's
+                from the camera info; the first 24 frames of phase s3's
                 sequence injected from the main thread as host numpy in
                 stamp order (wheel rows, scan, left, right) with
                 back-pressure (the next frame only while the synced queue
                 holds fewer than 9), spin_once draining, the runtime's C++
                 worker stepping the System: ATE <= 0.15 m and 0 lost over
-                frames 2-39, phase s3's map gate, exactly 2 launches of K1's
+                frames 2-23, phase s3's map gate, exactly 2 launches of K1's
                 pyramid entry a frame and 0 of every other entry, synced =
-                processed = 40 and nothing dropped, 40 odom and odom_info
+                processed = 24 and nothing dropped, 24 odom and odom_info
                 published, the odometry buffer's head equal to the wheel
                 rows injected, 0 host syncs in one input of host numpy
                 frames, wheel rows and scan (a probe System), save_system ->
@@ -219,16 +237,19 @@ Phases (each prints its lines; any failure exits non-zero without the final
                 lost, phase s3's map gate at 3; FleetMapping over phase
                 backend's scene, DP_ROBOT_FRAMES frames a robot, held
                 against MultiRobotMapping (keyframes, nodes, edges and
-                closures identical, poses after optimize within 1e-4 m
-                and rad, two sharded solves and two one-rank solves each
-                bit-equal and the sharded solve within 1e-4 of the
-                one-rank solve, all in the default mode, >= 1 cross-robot
-                closure with 2 ranks or more, 0 host syncs in one
-                verify_loop and one solve); the dryrun's
-                landmark-sharded BA and edge-sharded pose graph against the
-                one-rank solve (1e-5, landmarks 2.1e-4 m); the aggregate
+                closures identical, poses and chi2 after optimize
+                bit-equal, two sharded solves and two one-rank solves each
+                bit-equal and the sharded solve bit-equal to the one-rank
+                solve, all in the default mode, >= 1 cross-robot closure
+                with 2 ranks or more, 0 host syncs in one verify_loop and
+                one solve); the dryrun's edge-sharded pose graph bit-equal
+                to the one-rank solve and its landmark-sharded BA within
+                1e-5 (landmarks 2.1e-4 m) of it; the aggregate
                 fps, the gather's device ms a frame and the close-and-solve
                 seconds printed.  Its K1 launches join the kernels line's.
+                It runs beside phases 11 to 12b and phase s4 (its ranks are
+                processes of their own and phases 11 to 12b time nothing),
+                so its fps and seconds are taken with them running.
 Each phase's seconds are printed, and the profiler traces each kernel row
 took (a trace may come back without its device records).  The kernels JSON
 line, the nvidia-smi line and the final {"ok": true, "device": ...} line
@@ -238,7 +259,11 @@ A kernel's "ms" (device time), "plain_ms" and "bound_ms" in the kernels
 line are one frame's worth of its launches: for each of K1 and K2, its
 path's two pyramid launches, one at N = 120 plus one at N = 240; for K3,
 one solve's: 10 x 62 launches at [N, 6] and 10 at [N, 6, 6], with its
-"library_ms" one index_add_ over the 2E endpoints a launch.  The k1
+"library_ms" one index_add_ over the 2E endpoints a launch; for K4, one
+solve's: 10 gradient, 10 blocks and 10 x 61 matvec launches at E = 512,
+with its "library_ms" the einsums each launch replaces (torch.einsum on
+the card, cuBLAS) and its bound the live edges' Jacobians, residuals or
+gathered x, every weight and the output, once each.  The k1
 and k2 lines also give one frame's worth of each one-level entry (16
 launches: the (N, level) cases, each twice).  A bound counts the bytes the
 launch's inputs need once each: the pixels of the patches K1 samples and
@@ -267,7 +292,17 @@ import warnings
 import numpy as np
 
 N_FRAMES = 300
+# The depths below were cut for the script's time: at main 2.16 fps (an
+# H100 at 700 W) the whole script took 827.3 s, and over 1,200 s on a
+# slower host; the slowest host seen ran main at 1.33 fps.
+# Phase main drives the loop's first MAIN_FRAMES frames (its first two
+# corners, 24 m of the 39.4 m lap), 300 until then.
+MAIN_FRAMES = 120
 S3_FRAMES = 120  # bench.py phase 4 (VISFS_BENCH_S3_FRAMES default)
+# Phase s3 drives the first S3_LOOP_FRAMES frames of that loop (its first
+# straight and corner), S3_FRAMES until then; phase s4 keeps S3_FRAMES,
+# where the JAX package's band it is held to was taken.
+S3_LOOP_FRAMES = 60
 S3_SCAN_CAPACITY = 256
 # Phase s4 is phase s3's point at strategy 4.  Frame 1 has no wheel link,
 # so the laser terms alone fill the Hessian's out-of-plane dofs, which the
@@ -318,12 +353,13 @@ CULL = {"Tracker/CullByFundationMatrix": True,
 # since phase dp joined, 40 since phase s4 joined (with these four depths
 # cut the script took 649.7 s at main 1.89 fps; given back, with xcorr at
 # 60, the modes and the node at 80 and the fleet at 24, it took 1,303.8 s
-# of its 1,200 s on a slower host, main at 1.33 fps)
-XCORR_FRAMES = 40
+# of its 1,200 s on a slower host, main at 1.33 fps), 24 with MAIN_FRAMES
+XCORR_FRAMES = 24
 # phases mapping, loc_cull, rgbd and node: 80 since phase backend joined
 # (with them at 120 the whole script took 865 s of its 1,200 s on an H100),
-# 40 since phase s4 joined (the script's time, as XCORR_FRAMES)
-MODE_FRAMES = 40
+# 40 since phase s4 joined (the script's time, as XCORR_FRAMES), 24 with
+# MAIN_FRAMES
+MODE_FRAMES = 24
 CLAHE_BOUND = 1e-3  # levels, clahe on "cuda" against "cpu"
 # phase small, strategy 5: the one-ulp nudged "cpu" steps tried on a frame
 # whose lost flags differ
@@ -332,10 +368,12 @@ WITNESS_SEEDS = 16
 # (k * 7) mod (frames - 40) of the loop; FLEET_FRAMES frames a stream, 24
 # of bench.py's 40 since phase dp joined (with 40 and phase dp the script
 # would outrun its 1,200 s on a slower host), 12 since phase s4 joined (the
-# script's time, as XCORR_FRAMES)
+# script's time, as XCORR_FRAMES), 8 since K4 joined phase backend (at 12 the
+# phase took 80.6 s and the script 1,062.9 s on an H100 whose host ran main
+# at 1.59 fps)
 FLEET_B = 8
 BENCH_FLEET_FRAMES = 40
-FLEET_FRAMES = 12
+FLEET_FRAMES = 8
 FLEET_COMPARED = (0, 7)  # the streams held against single Systems
 # each timed loop's fps by label, for phase fleet's ratio to main's
 LOOP_FPS = {}
@@ -1208,7 +1246,7 @@ def timed_steps(sys_, seq, lefts, rights, feed=None, spans=()):
 
 
 def phase_loop(label, seq, System, lk, expect, ate_rmse, params=None,
-               frames=N_FRAMES, depth=False, one_way=None):
+               frames=MAIN_FRAMES, depth=False, one_way=None):
     """The first ``frames`` frames of the loop on the card (params default
     the bench's; depth feeds the ray-cast depth as the right image).
     expect: {(kernel module, launch counter name): launches per frame};
@@ -1486,6 +1524,47 @@ def s4_params(width):
     return dict(s3_params(width), **{"System/SensorStrategy": 4})
 
 
+def s4_process(cache_dir):
+    """Phase s4 in a process of its own (``chip_smoke.py --s4 CACHE_DIR``):
+    phase_s3 at strategy 4 with its gates, K1's counts its own."""
+    import torch
+
+    from visfs_tpu_torch.io.sim import ate_rmse, cached_textured_sequence
+    from visfs_tpu_torch.ops.kernels import lk_level as k1_mod
+    from visfs_tpu_torch.ops.kernels import lk_xcorr as k2_mod
+    from visfs_tpu_torch.slam.system import System
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    expect = {(k1_mod, "PYR_LAUNCHES"): 2, (k1_mod, "LAUNCHES"): 0,
+              (k2_mod, "PYR_LAUNCHES"): 0, (k2_mod, "LAUNCHES"): 0}
+    phase_s3(System, cached_textured_sequence, cache_dir, expect, ate_rmse,
+             label="s4", params=s4_params(WIDTH), probes=False,
+             ate_gate=S4_ATE_BOUND, map_exempt=S4_MAP_EXEMPT,
+             reference=S4_REFERENCE)
+
+
+def phase_s4(cache_dir):
+    """Runs s4_process and prints its output once it has ended; fails if
+    it exits with another code than 0."""
+    log = os.path.join(os.path.dirname(cache_dir), "phase_s4.log")
+    with open(log, "w") as out:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                 "--s4", cache_dir], stdout=out,
+                                stderr=subprocess.STDOUT)
+        try:
+            rc = proc.wait()
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    with open(log) as f:
+        text = f.read()
+    print(text, end="" if text.endswith("\n") else "\n", flush=True)
+    if rc != 0:
+        fail(f"s4: its process exited with code {rc}")
+
+
 def wheel_and_scan_feeder(sys_, seq, lefts, rights, wheel=True, scans=True,
                           row=0):
     """feed(i): frame i's wheel rows up to its stamp in one batch (from
@@ -1733,17 +1812,26 @@ def compare_submaps(label, a, b):
 # phase small's depth: at LocalMap/NumRangeDataLimit 3, 6 frames start a
 # second submap (frame 3) and finish the first (frame 5)
 SMALL_FRAMES = 6
+# the intra-op threads of phase small's "cpu" process, which runs beside
+# the parent's "cuda" runs and phase dp's ranks on the host's cores
+SMALL_CPU_THREADS = 4
 
 
-def phase_small(System, cached_textured_sequence, cache_dir):
+def small_sequence(cache_dir, device):
+    from visfs_tpu_torch.io.sim import cached_textured_sequence
+
+    return cached_textured_sequence(cache_dir=cache_dir,
+                                    n_frames=SMALL_FRAMES, width=160,
+                                    height=120, motion="square", seed=0,
+                                    speed=2.0, with_laser=True, n_beams=180,
+                                    with_depth=True, device=device)
+
+
+def small_runs(seq):
+    """Phase small's runs that each device makes on its own, in order:
+    (label, lk, params, System keywords, run_sequence keywords)."""
     from visfs_tpu_torch.operating_points import SIM_LOCALIZATION
 
-    seq = cached_textured_sequence(cache_dir=cache_dir,
-                                   n_frames=SMALL_FRAMES,
-                                   width=160, height=120, motion="square",
-                                   seed=0, speed=2.0, with_laser=True,
-                                   n_beams=180, with_depth=True,
-                                   device="cuda")
     params = bench_params(160)
     params["Tracker/MaxFeatures"] = 40
     # configs/sim_localization.yaml's block, its MinDistance (the default,
@@ -1761,43 +1849,90 @@ def phase_small(System, cached_textured_sequence, cache_dir):
             ("sim_localization", None, loc, seq.right),
             ("sim_localization + cull", None, dict(loc, **CULL),
              seq.right)):
-        runs = {}
-        for dev in ("cuda", "cpu"):
-            s = make_system(System, seq.camera, p, dev, lk)
-            runs[dev] = s.run_sequence(seq.stamps, seq.left, right)
-        print(f"small {label}: cuda vs cpu over {SMALL_FRAMES} frames at "
-              "160x120: "
-              + compare_runs(label, runs["cuda"], runs["cpu"]), flush=True)
+        yield label, lk, p, {}, dict(rights=right)
     # strategies 2 and 3 with wheel rows, scans at 3, free running (3 also
     # with CLAHE); a submap rotates every 3 scans, so SMALL_FRAMES start a
     # second one and finish the first
     for strategy, extra in ((2, {}), (3, {}), (3, {"System/CLAHE": True})):
-        p = dict(fusion_params(params, strategy), **extra)
-        label = f"strategy {strategy}" + (" CLAHE" if extra else "")
-        scans = seq.laser_scans if strategy == 3 else None
-        free = {dev: make_system(System, seq.camera, p, dev,
-                                 scan_capacity=S3_SCAN_CAPACITY)
-                for dev in ("cuda", "cpu")}
-        runs = {dev: s.run_sequence(seq.stamps, seq.left, seq.right,
-                                    wheel_odom=seq.wheel_odom, scans=scans)
-                for dev, s in free.items()}
-        line = compare_runs(label, runs["cuda"], runs["cpu"])
-        if strategy == 3:
-            line += "; " + compare_submaps(
-                label, free["cuda"].state.laser.submaps,
-                free["cpu"].state.laser.submaps)
+        yield (f"strategy {strategy}" + (" CLAHE" if extra else ""), None,
+               dict(fusion_params(params, strategy), **extra),
+               dict(scan_capacity=S3_SCAN_CAPACITY),
+               dict(rights=seq.right, wheel_odom=seq.wheel_odom,
+                    scans=seq.laser_scans if strategy == 3 else None))
+
+
+def small_run(System, seq, device, run):
+    """One of small_runs on ``device``: each frame's pose, lost flag and
+    inliers, and with scans the submaps on "cpu"."""
+    import types
+
+    label, lk, p, sys_kw, run_kw = run
+    s = make_system(System, seq.camera, p, device, lk, **sys_kw)
+    outs = [types.SimpleNamespace(pose=np.asarray(o.pose), lost=bool(o.lost),
+                                  n_inliers=int(o.n_inliers))
+            for o in s.run_sequence(seq.stamps, seq.left, **run_kw)]
+    if run_kw.get("scans") is None:
+        return outs, None
+    sub = s.state.laser.submaps
+    return outs, types.SimpleNamespace(**{
+        f: getattr(sub, f).cpu() for f in ("slot_valid", "num_range_data",
+                                          "finished", "max_xy", "cells")})
+
+
+def small_cpu(cache_dir, path):
+    """Phase small's "cpu" process: every run of small_runs on "cpu",
+    saved to ``path`` by label."""
+    import torch
+
+    from visfs_tpu_torch.slam.system import System
+
+    torch.set_num_threads(SMALL_CPU_THREADS)
+    seq = small_sequence(cache_dir, "cpu")
+    torch.save({run[0]: small_run(System, seq, "cpu", run)
+                for run in small_runs(seq)}, path)
+
+
+def phase_small(System, cache_dir):
+    """The System on "cuda" against "cpu" at 160x120 over SMALL_FRAMES
+    frames: each run of small_runs on both (the "cpu" side in a process
+    of its own, started first), then strategies 4 and 5 stepped."""
+    import torch
+
+    seq = small_sequence(cache_dir, "cuda")  # the cache the child reads
+    path = os.path.join(os.path.dirname(cache_dir), "small_cpu_runs.pt")
+    if os.path.exists(path):
+        os.unlink(path)
+    child = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                              "--small-cpu", cache_dir, path])
+    try:
+        runs = [(run, small_run(System, seq, "cuda", run))
+                for run in small_runs(seq)]
+        # strategies 4 (wheel rows) and 5 (none: its own path, PnP and the
+        # laser-only BA) with scans.  Free running, float-level noise moves
+        # the reference itself by centimetres at 4 and decimetres at 5
+        # (reference_laser_noise.py), so each frame is stepped on "cuda"
+        # from the "cpu" run's state.
+        params = dict(bench_params(160), **{"Tracker/MaxFeatures": 40})
+        stepped_fusion(System, seq, fusion_params(params, 4), "strategy 4",
+                       wheel=True)
+        stepped_fusion(System, seq, fusion_params(params, 5), "strategy 5",
+                       wheel=False)
+        rc = child.wait()
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    if rc != 0:
+        fail(f"small: the cpu process exited with code {rc}")
+    cpu = torch.load(path, weights_only=False)
+    for (label, _, _, _, run_kw), (outs, sub) in runs:
+        line = compare_runs(label, outs, cpu[label][0])
+        if sub is not None:
+            line += "; " + compare_submaps(label, sub, cpu[label][1])
+        free = (", free running" if run_kw.get("wheel_odom") is not None
+                else "")
         print(f"small {label}: cuda vs cpu over {SMALL_FRAMES} frames at "
-              "160x120, free "
-              f"running: {line}", flush=True)
-    # strategies 4 (wheel rows) and 5 (none: its own path, PnP and the
-    # laser-only BA) with scans.  Free running, float-level noise moves
-    # the reference itself by centimetres at 4 and decimetres at 5
-    # (reference_laser_noise.py), so each frame is stepped on "cuda" from
-    # the "cpu" run's state.
-    stepped_fusion(System, seq, fusion_params(params, 4), "strategy 4",
-                   wheel=True)
-    stepped_fusion(System, seq, fusion_params(params, 5), "strategy 5",
-                   wheel=False)
+              f"160x120{free}: {line}", flush=True)
 
 
 def phase_clahe(seq):
@@ -1901,6 +2036,13 @@ REFERENCE_CROSS_EDGES = 7
 # card against CPU: verify_loop's rel, optimize_graph's poses
 VERIFY_REL_BOUND = 1e-3
 GRAPH_POSE_BOUND = 1e-4
+# one solve of this graph before the per-edge products went through K4 (the
+# einsums): its kernels and kernel time under torch.profiler on an NVIDIA
+# H100 80GB HBM3 at 700 W, over four runs of this phase
+SOLVE_BEFORE_K4 = "28,284-28,386 kernels, 44.27-44.63 ms of kernel time"
+# K4's blocks held against the whole launch's rows: the rows of a shard of
+# 2, 4 and 8 ranks of the session's 512 edge slots
+K4_BLOCKS = (256, 128, 64)
 
 
 def device_kernels(fn):
@@ -1973,6 +2115,7 @@ def phase_backend(cached_textured_sequence, cache_dir, ate_rmse, expect):
     from visfs_tpu_torch.core.camera import make_stereo_camera
     from visfs_tpu_torch.core.lie import se3_matrix
     from visfs_tpu_torch.io import checkpoint
+    from visfs_tpu_torch.ops.kernels import edge_products as k4_mod
     from visfs_tpu_torch.ops.kernels import segment_sum as k3_mod
     from visfs_tpu_torch.slam import mapping
     from visfs_tpu_torch.slam.multi_robot import MultiRobotMapping
@@ -2121,8 +2264,9 @@ def phase_backend(cached_textured_sequence, cache_dir, ate_rmse, expect):
 
     # optimize: the error before and after, chi2, syncs in one solve, the
     # same solve on cpu
-    # every solve in PyTorch's default mode: the pose graph's per-pose sums
-    # add in one fixed order (K3), so each solve of g0 gives one answer
+    # every solve in PyTorch's default mode: the pose graph's per-edge
+    # products (K4) and per-pose sums (K3) each in one fixed order, so each
+    # solve of g0 gives one answer
     if torch.are_deterministic_algorithms_enabled():
         fail("backend: deterministic algorithms are on")
     g0 = backend.graph
@@ -2135,12 +2279,14 @@ def phase_backend(cached_textured_sequence, cache_dir, ate_rmse, expect):
     o_kernels, o_kms = device_kernels(
         lambda: profiled.append(mapping.optimize_graph(g0, None,
                                                        **BACKEND_SOLVE)))
-    k3_mod.LAUNCHES = 0
+    k3_mod.LAUNCHES = k4_mod.LAUNCHES = 0
     t0 = time.perf_counter()
     chi2 = session.optimize(**BACKEND_SOLVE)
     solve_wall = (time.perf_counter() - t0) * 1e3
-    k3_launches = k3_mod.LAUNCHES
-    k3_expect = BACKEND_SOLVE["iterations"] * (BACKEND_SOLVE["cg_iters"] + 3)
+    k3_launches, k4_launches = k3_mod.LAUNCHES, k4_mod.LAUNCHES
+    # a Gauss-Newton step: the gradient, the blocks, the CG's first
+    # residual and cg_iters matvecs, each one launch of either kernel
+    k_expect = BACKEND_SOLVE["iterations"] * (BACKEND_SOLVE["cg_iters"] + 3)
     unequal = [f"{name} {f}" for name, g in (("profiled", profiled[0][0]),
                                              ("optimize", backend.graph))
                for f in ("pose_q", "pose_t")
@@ -2149,16 +2295,18 @@ def phase_backend(cached_textured_sequence, cache_dir, ate_rmse, expect):
           f"the profiled one, MultiRobotMapping.optimize): "
           f"{'bit-equal' if not unequal else f'differ in {unequal}'}, chi2 "
           f"{float(chi2_probe):.9g} / {float(profiled[0][1]):.9g} / "
-          f"{chi2:.9g}; {k3_mod.__name__.rsplit('.', 1)[-1]}.LAUNCHES "
-          f"{k3_launches} in optimize (expected {k3_expect}); deterministic "
-          f"algorithms {torch.are_deterministic_algorithms_enabled()}",
-          flush=True)
+          f"{chi2:.9g}; in optimize segment_sum.LAUNCHES {k3_launches}, "
+          f"edge_products.LAUNCHES {k4_launches} (expected {k_expect} "
+          f"each); deterministic algorithms "
+          f"{torch.are_deterministic_algorithms_enabled()}", flush=True)
     if unequal or float(chi2_probe) != chi2:
         fail(f"backend: two default-mode solves of one graph differ "
              f"({unequal})")
-    if k3_launches != k3_expect:
-        fail(f"backend: segment_sum launched {k3_launches} times in "
-             f"optimize, expected {k3_expect}")
+    for name, n_launches in (("segment_sum", k3_launches),
+                             ("edge_products", k4_launches)):
+        if n_launches != k_expect:
+            fail(f"backend: {name} launched {n_launches} times in "
+                 f"optimize, expected {k_expect}")
     mapping_resumed(checkpoint, mapping, backend, g0, cache_dir)
     err1 = keyframe_error(session.poses(), backend.graph, seq)
     g_cpu, _ = mapping.optimize_graph(
@@ -2168,17 +2316,22 @@ def phase_backend(cached_textured_sequence, cache_dir, ate_rmse, expect):
     host = se3_matrix(g_cpu.pose_q[:n], g_cpu.pose_t[:n])
     gaps = [rel_gap(a.numpy(), b.numpy()) for a, b in zip(card, host)]
     g_dt, g_dang = max(g[0] for g in gaps), max(g[1] for g in gaps)
+    g_words = sum(int((getattr(g_probe, f).cpu().view(torch.int32)
+                       != getattr(g_cpu, f).view(torch.int32)).sum())
+                  for f in ("pose_q", "pose_t"))
     held = (err1.max() <= 1.05 * err0.max() + 1e-3
             and err1.mean() <= 1.02 * err0.mean() + 1e-3)
     print(f"backend: optimize {solve_wall:.1f} ms wall (one solve: "
           f"{o_wall:.1f} ms wall, {o_dev:.2f} ms device span, {o_kernels} "
           f"kernels, {o_kms:.2f} ms of kernel time, host syncs "
-          f"{len(syncs)}); chi2 {chi2_0:.6g} -> {chi2:.6g}; keyframe error "
+          f"{len(syncs)}; before K4: {SOLVE_BEFORE_K4}); chi2 "
+          f"{chi2_0:.6g} -> {chi2:.6g}; keyframe error "
           f"max {err0.max():.4f} -> {err1.max():.4f} m, mean "
           f"{err0.mean():.4f} -> {err1.mean():.4f} m (the reference test's "
           f"bounds {'held' if held else 'not held'}; the JAX package here: "
           f"not held, reference_backend.py); optimize_graph cuda vs cpu "
-          f"within {g_dt:.3g} m and {g_dang:.3g} rad", flush=True)
+          f"within {g_dt:.3g} m and {g_dang:.3g} rad ({g_words} words of "
+          f"the poses differ)", flush=True)
     for msg in sorted(set(syncs))[:5]:
         print(f"backend: optimize sync: {msg[:200]}", flush=True)
     if syncs:
@@ -2191,39 +2344,62 @@ def phase_backend(cached_textured_sequence, cache_dir, ate_rmse, expect):
     if g_dt > GRAPH_POSE_BOUND or g_dang > GRAPH_POSE_BOUND:
         fail(f"backend: optimize_graph cuda vs cpu {g_dt:.3g} m, "
              f"{g_dang:.3g} rad")
-    return launches, k3_launches, phase_k3(mapping, k3_mod, g0)
+    return (launches, k3_launches, k4_launches,
+            solve_kernels(mapping, k3_mod, k4_mod, g0))
 
-def phase_k3(mapping, k3_mod, g0):
-    """K3, the pose graph's fixed-order per-pose sum, against its plain
-    version at the shapes phase backend's solve gives it: the terms of the
-    first Gauss-Newton step of g0 as the solve hands them over (the
-    gradient and each CG matvec [E, 2, 6], the preconditioner blocks [E, 2,
-    6, 6]).  The kernel on "cuda" against the plain version (index_add_,
-    which adds in order on the CPU) on the same terms copied to "cpu":
-    bit-equal (tolerance 0); against the plain version on "cuda"
-    (index_add_ in atomic order): printed.  Returns one solve's worth
-    (BACKEND_SOLVE: iterations x (cg_iters + 2) launches at [N, 6] and
-    iterations at [N, 6, 6]) of the device ms, the plain version's and one
-    index_add_ call's (the library call: all 2E endpoints, atomic order)
-    CUDA-event ms, and the bound: each walked term, its row index, the run
-    starts and the output once, one add per walked term and column."""
-    import torch
 
+def solve_kernels(mapping, k3_mod, k4_mod, g0):
+    """K3 and K4 against their plain versions at the shapes phase backend's
+    solve gives them: the inputs of the first Gauss-Newton step of g0 as
+    the solve hands them over (one iteration of one CG step: K3's first
+    call at each shape, K4's gradient and blocks, and its last matvec, the
+    CG step's, whose x is not 0).  Their device times come from one fresh
+    process.  Returns (K3's one-solve totals, K4's)."""
     from visfs_tpu_torch.parallel import pose_graph
 
-    seen = {}
-    real = pose_graph.segment_sum
+    k3_seen, k4_seen = {}, {}
+    real = {name: getattr(pose_graph, name) for name in (
+        "segment_sum", "edge_gradient", "edge_blocks", "edge_matvec")}
 
-    def keep(terms, seg, n):
-        seen.setdefault(tuple(terms.shape[2:]), (terms, seg, n))
-        return real(terms, seg, n)
+    def keep_sum(terms, seg, n):
+        k3_seen.setdefault(tuple(terms.shape[2:]), (terms, seg, n))
+        return real["segment_sum"](terms, seg, n)
 
-    pose_graph.segment_sum = keep
+    def keep(entry):
+        def call(*args):
+            k4_seen[entry] = args
+            return real[f"edge_{entry}"](*args)
+        return call
+
+    pose_graph.segment_sum = keep_sum
+    for entry in k4_mod.ENTRIES:
+        setattr(pose_graph, f"edge_{entry}", keep(entry))
     try:
         mapping.optimize_graph(g0, None, iterations=1, cg_iters=1)
     finally:
-        pose_graph.segment_sum = real
-    device_us = k3_device_us_fresh(seen)
+        for name, fn in real.items():
+            setattr(pose_graph, name, fn)
+    device_us = solve_device_us_fresh(k3_seen, k4_seen)
+    return (phase_k3(k3_mod, k3_seen, device_us["k3"]),
+            phase_k4(k4_mod, k4_seen, device_us["k4"]))
+
+
+def phase_k3(k3_mod, seen, device_us):
+    """K3, the pose graph's fixed-order per-pose sum, against its plain
+    version on the terms of the solve's first Gauss-Newton step (shape ->
+    (terms, layout, n): the gradient and each CG matvec [E, 2, 6], the
+    preconditioner blocks [E, 2, 6, 6]).  The kernel on "cuda" against the
+    plain version (index_add_, which adds in order on the CPU) on the same
+    terms copied to "cpu": bit-equal (tolerance 0); against the plain
+    version on "cuda" (index_add_ in atomic order): printed.  Returns one
+    solve's worth (BACKEND_SOLVE: iterations x (cg_iters + 2) launches at
+    [N, 6] and iterations at [N, 6, 6]) of the device ms, the plain
+    version's and one index_add_ call's (the library call: all 2E
+    endpoints, atomic order) CUDA-event ms, and the bound: each walked
+    term, its row index, the run starts and the output once, one add per
+    walked term and column."""
+    import torch
+
     rows = {}
     for shape, (terms, seg, n) in sorted(seen.items()):
         label = f"k3 [{n}, {', '.join(map(str, shape))}]"
@@ -2275,58 +2451,189 @@ def phase_k3(mapping, k3_mod, g0):
     per_solve = {(6,): BACKEND_SOLVE["iterations"]
                  * (BACKEND_SOLVE["cg_iters"] + 2),
                  (6, 6): BACKEND_SOLVE["iterations"]}
-    tot = {k: sum(per_solve[sh] * r[k] for sh, r in rows.items())
+    return solve_totals("k3", rows, per_solve)
+
+
+def solve_totals(label, rows, per_solve):
+    """One solve's worth of a kernel's rows (each row times its launches in
+    a solve), which bound dominates, the largest error; printed."""
+    tot = {k: sum(per_solve[key] * r[k] for key, r in rows.items())
            for k in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
                      "bytes_ms", "ops_ms")}
     tot["bound_by"] = ("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
                        else "operations")
     tot["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
-    print(f"k3: one solve ({sum(per_solve.values())} launches): "
+    print(f"{label}: one solve ({sum(per_solve.values())} launches): "
           + json.dumps({k: tot[k] for k in ("ms", "call_ms", "plain_ms",
                                             "library_ms", "bound_ms")}),
           flush=True)
     return tot
 
 
-def k3_device_us_fresh(seen):
-    """K3's device us a launch on each of phase backend's inputs (shape ->
-    (terms, layout, n)), from torch.profiler traces in a fresh process
-    (``chip_smoke.py --k3-device-us PATH``, the inputs saved under build/):
-    late in this script a trace of K3's launches has come back with no
-    device record, where a fresh process's hold them.  None where no trace
-    shows the kernel."""
+def k4_work(entry, args):
+    """(bytes, operations) that K4's entry needs on these inputs: w for
+    every edge; Ji and Jj, and r (gradient) or the gathered x rows and the
+    two indices (matvec), for the live edges (weight not 0: a dead edge's
+    terms are +0 whatever its Jacobians); the output once.  Operations a
+    live edge: gradient 6 + 2 x 6 x 12 = 150, blocks 2 x (36 + 36 x 12) =
+    936, matvec the gradient's and y (2 x 6 x 12 + 6) = 300."""
+    w = args[0]
+    e, live = w.shape[0], int((w != 0).sum())
+    if entry == "blocks":
+        return 4 * e + live * 2 * 36 * 4 + e * 72 * 4, live * 936
+    per_live = 2 * 36 * 4 + (6 * 4 if entry == "gradient"
+                             else 2 * 6 * 4 + 2 * 8)
+    return (4 * e + live * per_live + e * 12 * 4,
+            live * (150 if entry == "gradient" else 300))
+
+
+def phase_k4(k4_mod, seen, device_us):
+    """K4, the pose graph's per-edge products, at the shapes of the solve's
+    first Gauss-Newton step (entry -> its inputs).  The kernel on "cuda"
+    against the order oracle on the same inputs copied to "cpu": bit-equal
+    (tolerance 0); against the plain version (the einsums) on "cpu": the
+    differing bits printed (0 where the CPU's einsum adds as the oracle
+    does); each block of K4_BLOCKS rows (a shard of 2, 4 and 8 ranks)
+    launched alone against the same rows of the whole launch: bit-equal
+    (tolerance 0); against the plain version on "cuda" (cuBLAS): the
+    largest difference printed.  Returns one solve's worth (BACKEND_SOLVE:
+    iterations gradient and blocks launches, iterations x (cg_iters + 1)
+    matvecs) of the device ms, the call, the plain version's and the
+    library call's CUDA-event ms (the einsums the solve made before, on the
+    card, without the stack), and the bound (k4_work)."""
+    import torch
+
+    def bits(x):
+        return x.contiguous().view(torch.int32)
+
+    def einsums(entry, w, Ji, Jj, *rest):
+        if entry == "blocks":
+            return (torch.einsum("e,eki,ekj->eij", w, Ji, Ji),
+                    torch.einsum("e,eki,ekj->eij", w, Jj, Jj))
+        if entry == "gradient":
+            (v,) = rest
+        else:
+            x, ei, ej = rest
+            v = torch.einsum("eki,ei->ek", Ji, x[ei]) \
+                + torch.einsum("eki,ei->ek", Jj, x[ej])
+        return (torch.einsum("e,eki,ek->ei", w, Ji, v),
+                torch.einsum("e,eki,ek->ei", w, Jj, v))
+
+    rows = {}
+    for entry in k4_mod.ENTRIES:
+        args = seen[entry]
+        e = args[0].shape[0]
+        label = f"k4 {entry} [{e}, 2{', 6' * (2 if entry == 'blocks' else 1)}]"
+        out = k4_mod.edge_products_cuda(entry, *args)
+        host_args = tuple(a.cpu() for a in args)
+        oracle = k4_mod.edge_products_oracle(entry, *host_args)
+        plain_cpu = k4_mod.edge_products_reference(entry, *host_args)
+        plain_cuda = k4_mod.edge_products_reference(entry, *args)
+        got = out.cpu()
+        err = float((got - oracle).abs().max())
+        oracle_bits = int((bits(got) != bits(oracle)).sum())
+        cpu_bits = int((bits(got) != bits(plain_cpu)).sum())
+        cublas = float((plain_cuda - out).abs().max())
+        block_bits = {}
+        for size in K4_BLOCKS:
+            n_diff = 0
+            for lo in range(0, e, size):
+                part = tuple(a if k == 3 and entry == "matvec"
+                             else a[lo:lo + size] for k, a in enumerate(args))
+                n_diff += int((bits(k4_mod.edge_products_cuda(entry, *part))
+                               != bits(out[lo:lo + size])).sum())
+            block_bits[size] = n_diff
+        call_ms = cuda_time_ms(lambda: k4_mod.edge_products_cuda(entry,
+                                                                 *args))
+        ms, how = device_us[entry], "profiler, a fresh process"
+        if ms is None:
+            ms, how = call_ms, ("CUDA events around a call: the fresh "
+                                "process's traces held no launch")
+        else:
+            ms /= 1e3
+        plain_ms = cuda_time_ms(
+            lambda: k4_mod.edge_products_reference(entry, *args))
+        library_ms = cuda_time_ms(lambda: einsums(entry, *args))
+        n_bytes, ops = k4_work(entry, args)
+        bytes_ms, ops_ms = bound(n_bytes, ops)
+        rows[entry] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                           library_ms=library_ms, bytes_ms=bytes_ms,
+                           ops_ms=ops_ms, bound_ms=max(bytes_ms, ops_ms),
+                           max_abs_err=err)
+        print(f"{label}: {int((args[0] != 0).sum())} live edges of {e}; "
+              f"kernel {ms * 1e3:.2f} us device ({how}; call "
+              f"{call_ms:.3f} ms), plain {plain_ms:.3f} ms, the einsums "
+              f"{library_ms:.3f} ms, bound "
+              f"{max(bytes_ms, ops_ms) * 1e3:.4f} us "
+              f"({'bytes' if bytes_ms >= ops_ms else 'operations'}); "
+              f"against the order oracle on cpu {oracle_bits} words differ "
+              f"(max |d| {err:.3g}), the plain version on cpu {cpu_bits} "
+              f"words; blocks of "
+              + ", ".join(f"{size} rows {n} words" for size, n
+                          in block_bits.items())
+              + f" differ from the whole launch's rows; the plain version "
+              f"on cuda (cuBLAS) max |d| {cublas:.3g}", flush=True)
+        if oracle_bits:
+            fail(f"{label}: the kernel is not bit-equal to the order oracle "
+                 f"on cpu ({oracle_bits} words, max |d| {err:.3g})")
+        if any(block_bits.values()):
+            fail(f"{label}: a block's launch differs from the whole "
+                 f"launch's rows ({block_bits})")
+    it, cg = BACKEND_SOLVE["iterations"], BACKEND_SOLVE["cg_iters"]
+    return solve_totals("k4", rows, {"gradient": it, "blocks": it,
+                                     "matvec": it * (cg + 1)})
+
+
+def solve_device_us_fresh(k3_seen, k4_seen):
+    """K3's and K4's device us a launch on phase backend's inputs ({"k3":
+    shape -> us, "k4": entry -> us}), from torch.profiler traces in a fresh
+    process (``chip_smoke.py --solve-device-us PATH``, the inputs saved
+    under build/): late in this script a trace of K3's launches has come
+    back with no device record, where a fresh process's hold them.  None
+    where no trace shows the kernel."""
     import torch
 
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
-                        "k3_inputs.pt")
-    torch.save({shape: (terms.cpu(), tuple(x.cpu() for x in seg), n)
-                for shape, (terms, seg, n) in seen.items()}, path)
+                        "solve_kernel_inputs.pt")
+    torch.save({"k3": {shape: (terms.cpu(), tuple(x.cpu() for x in seg), n)
+                       for shape, (terms, seg, n) in k3_seen.items()},
+                "k4": {entry: tuple(a.cpu() for a in args)
+                       for entry, args in k4_seen.items()}}, path)
     run = subprocess.run([sys.executable, os.path.abspath(__file__),
-                          "--k3-device-us", path], capture_output=True,
+                          "--solve-device-us", path], capture_output=True,
                          text=True, timeout=300)
     if run.returncode != 0:
-        fail(f"k3: the timing process exited {run.returncode}: "
+        fail(f"k3/k4: the timing process exited {run.returncode}: "
              f"{run.stderr[-2000:]}")
     found = json.loads(run.stdout.strip().splitlines()[-1])
-    return {shape: found[str(list(shape))] for shape in seen}
+    return {"k3": {shape: found["k3"][str(list(shape))] for shape in k3_seen},
+            "k4": {entry: found["k4"][entry] for entry in k4_seen}}
 
 
-def k3_device_us(path):
-    """The fresh process of k3_device_us_fresh: prints one JSON object,
-    str(list(shape)) -> K3's median device us a launch (None if no trace
-    shows it)."""
+def solve_device_us(path):
+    """The fresh process of solve_device_us_fresh: prints one JSON object,
+    {"k3": str(list(shape)) -> K3's median device us a launch, "k4": entry
+    -> K4's} (None where no trace shows the kernel)."""
     import torch
 
+    from visfs_tpu_torch.ops.kernels import edge_products as k4_mod
     from visfs_tpu_torch.ops.kernels import segment_sum as k3_mod
 
-    out = {}
-    for shape, (terms, seg, n) in torch.load(path).items():
+    saved = torch.load(path)
+    out = {"k3": {}, "k4": {}}
+    for shape, (terms, seg, n) in saved["k3"].items():
         terms = terms.cuda()
         seg = k3_mod.Segments(*(x.cuda() for x in seg))
-        ms, traces = kernel_device_ms(
+        ms, _ = kernel_device_ms(
             lambda: k3_mod.segment_sum_cuda(terms, seg, n),
             "segment_sum_kernel")
-        out[str(list(shape))] = None if ms is None else ms * 1e3
+        out["k3"][str(list(shape))] = None if ms is None else ms * 1e3
+    for entry, args in saved["k4"].items():
+        args = tuple(a.cuda() for a in args)
+        ms, _ = kernel_device_ms(
+            lambda: k4_mod.edge_products_cuda(entry, *args),
+            "edge_products_kernel")
+        out["k4"][entry] = None if ms is None else ms * 1e3
     print(json.dumps(out), flush=True)
 
 
@@ -2869,8 +3176,12 @@ def kernel_entry(name, source, replaces, launches, tot):
 
 
 def main():
-    if sys.argv[1:2] == ["--k3-device-us"]:
-        return k3_device_us(sys.argv[2])
+    if sys.argv[1:2] == ["--solve-device-us"]:
+        return solve_device_us(sys.argv[2])
+    if sys.argv[1:2] == ["--small-cpu"]:
+        return small_cpu(*sys.argv[2:4])
+    if sys.argv[1:2] == ["--s4"]:
+        return s4_process(sys.argv[2])
     t_start = time.perf_counter()
     try:
         import torch
@@ -2889,6 +3200,7 @@ def main():
         from visfs_tpu_torch.io.sim import (ate_rmse,
                                             cached_textured_sequence)
         from visfs_tpu_torch.ops.kernels import _build
+        from visfs_tpu_torch.ops.kernels import edge_products as k4_mod
         from visfs_tpu_torch.ops.kernels import lk_level as k1_mod
         from visfs_tpu_torch.ops.kernels import lk_xcorr as k2_mod
         from visfs_tpu_torch.ops.kernels import segment_sum as k3_mod
@@ -2901,19 +3213,21 @@ def main():
         fail(f"the port imported {sorted(bad)[:5]}")
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
-        builds = [pool.submit(m.build) for m in (k1_mod, k2_mod, k3_mod)]
+    kernel_mods = (k1_mod, k2_mod, k3_mod, k4_mod)
+    with concurrent.futures.ThreadPoolExecutor(len(kernel_mods)) as pool:
+        builds = [pool.submit(m.build) for m in kernel_mods]
         for f in builds:
             f.result()
     for lib, src in (("visfs_lk_level", "lk_level.cu"),
                      (k2_mod.LIB_NAME, "lk_xcorr.cu"),
-                     (k3_mod.LIB_NAME, "segment_sum.cu")):
+                     (k3_mod.LIB_NAME, "segment_sum.cu"),
+                     (k4_mod.LIB_NAME, "edge_products.cu")):
         log, build_s = _build.build_info(lib)
         ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln
                  or "spill" in ln]
         print(f"build: {src} in {build_s:.1f} s; ptxas: {' | '.join(ptxas)}",
               flush=True)
-    print(f"build: the three libraries loaded {time.perf_counter() - t0:.1f} "
+    print(f"build: the four libraries loaded {time.perf_counter() - t0:.1f} "
           f"s after the parallel start", flush=True)
 
     cache_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -2952,11 +3266,7 @@ def main():
         frames=XCORR_FRAMES)
     timed_phase("fleet", phase_fleet, seq, System, on_k1, ate_rmse)
     timed_phase("s3", phase_s3, System, cached_textured_sequence, cache_dir,
-                on_k1, ate_rmse)
-    timed_phase("s4", phase_s3, System, cached_textured_sequence, cache_dir,
-                on_k1, ate_rmse, label="s4", params=s4_params(WIDTH),
-                probes=False, ate_gate=S4_ATE_BOUND,
-                map_exempt=S4_MAP_EXEMPT, reference=S4_REFERENCE)
+                on_k1, ate_rmse, frames=S3_LOOP_FRAMES)
     timed_phase("mapping", phase_s3, System, cached_textured_sequence,
                 cache_dir, on_k1, ate_rmse, label="mapping",
                 params=SIM_MAPPING, probes=False, frames=MODE_FRAMES)
@@ -2968,17 +3278,25 @@ def main():
                 params=dict(bench_params(WIDTH),
                             **{"System/SensorStrategy": 1}),
                 frames=MODE_FRAMES, depth=True)
-    timed_phase("small", phase_small, System, cached_textured_sequence,
-                cache_dir)
-    timed_phase("clahe", phase_clahe, seq)
-    timed_phase("cull", phase_cull)
-    timed_phase("render", phase_render, cache_dir)
-    _, k3_launches, k3_tot = timed_phase(
+    # Phases s4 and dp run in processes of their own (s4's its own, dp's
+    # its ranks) beside phases small to render, which time nothing, on the
+    # host's other cores (their fps and seconds are taken beside them).
+    # A phase that fails there exits once s4 and dp have ended; their own
+    # failures are raised by result().
+    with concurrent.futures.ThreadPoolExecutor(2) as beside:
+        s4 = beside.submit(timed_phase, "s4", phase_s4, cache_dir)
+        dp = beside.submit(timed_phase, "dp", phase_dp, cache_dir)
+        timed_phase("small", phase_small, System, cache_dir)
+        timed_phase("clahe", phase_clahe, seq)
+        timed_phase("cull", phase_cull)
+        timed_phase("render", phase_render, cache_dir)
+        s4.result()
+        dp_launches = dp.result()
+    _, k3_launches, k4_launches, (k3_tot, k4_tot) = timed_phase(
         "backend", phase_backend, cached_textured_sequence, cache_dir,
         ate_rmse, on_k1)
     timed_phase("node", phase_node, cached_textured_sequence, cache_dir,
                 ate_rmse, on_k1)
-    dp_launches = timed_phase("dp", phase_dp, cache_dir)
     print("phase times (s): " + json.dumps(times), flush=True)
     tries = [n for _, n in TRACES]
     print(f"profiler traces: {len(TRACES)} kernel rows, traces per row "
@@ -2996,7 +3314,10 @@ def main():
                      xcorr_launches[k2_pyr], k2_tot),
         kernel_entry("segment_sum", "visfs_tpu_torch/csrc/segment_sum.cu",
                      "visfs_tpu/parallel/pose_graph.py:93",
-                     k3_launches, k3_tot)]}), flush=True)
+                     k3_launches, k3_tot),
+        kernel_entry("edge_products", "visfs_tpu_torch/csrc/edge_products.cu",
+                     "visfs_tpu/parallel/pose_graph.py:90",
+                     k4_launches, k4_tot)]}), flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s at main "
           f"{LOOP_FPS['main']:.2f} fps", flush=True)
     print(nvidia_smi_line(), flush=True)

@@ -16,7 +16,9 @@ tolerance of tests/test_torch_xcorr.py), status identical, err rtol 1e-3;
 the step per frame translation 1e-3 m, yaw 1e-3 rad, inliers within 1,
 identical lost flags; at SensorStrategy 3 also the submaps' slots, counts
 and finished flags identical, max_xy within 1e-4 m and at most 0.1 % of
-the known cells different."""
+the known cells different; K3 and K4 (the pose graph's per-pose sum and
+per-edge products) bit-equal to their plain version and order oracle on
+the CPU (tolerance 0: each adds in one fixed order by design)."""
 
 import dataclasses
 
@@ -471,19 +473,90 @@ def test_segment_sum_kernel_bit_equal_to_plain_version(shape):
     assert torch.equal(out.cpu().view(torch.int32), host.view(torch.int32))
 
 
+@pytest.mark.parametrize("entry", ["gradient", "blocks", "matvec"])
+def test_edge_products_kernel_bit_equal_to_order_oracle(entry):
+    """K4 (the pose graph's per-edge products) on the first Gauss-Newton
+    step's terms of a graph with closures and 512 edge slots, most masked:
+    bit-equal to the order oracle on the same inputs copied to the CPU, one
+    launch counted; each 128-row block (a 4-rank shard) launched alone
+    bit-equal to the same rows of the whole launch; tolerance 0."""
+    _require_gpu()
+    from visfs_tpu_torch.ops.kernels import edge_products as k4
+    from visfs_tpu_torch.parallel import pose_graph
+
+    kg = _graph_with_closures("cuda")
+    g, _ = pose_graph._shard_edges(pose_graph.PoseGraph(
+        kg.pose_q, kg.pose_t, ~kg.valid, kg.edge_i, kg.edge_j, kg.edge_q,
+        kg.edge_t, kg.edge_info, kg.edge_valid), None)
+    r, Ji, Jj, w, _ = pose_graph._edge_terms(g, g.pose_q, g.pose_t, 1.0)
+    x = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(g.pose_q.shape[0], 6)).astype(np.float32)).cuda()
+    args = {"gradient": (w, Ji, Jj, r), "blocks": (w, Ji, Jj),
+            "matvec": (w, Ji, Jj, x, g.edge_i, g.edge_j)}[entry]
+    before = k4.LAUNCHES
+    out = k4.edge_products(entry, *args)
+    assert k4.LAUNCHES == before + 1
+    host = k4.edge_products_oracle(entry, *(a.cpu() for a in args))
+    assert torch.equal(out.cpu().view(torch.int32), host.view(torch.int32))
+    e = w.shape[0]
+    for lo in range(0, e, 128):
+        part = tuple(a if k == 3 and entry == "matvec" else a[lo:lo + 128]
+                     for k, a in enumerate(args))
+        got = k4.edge_products(entry, *part)
+        assert torch.equal(got.view(torch.int32),
+                           out[lo:lo + 128].view(torch.int32))
+
+
+def test_edge_products_matvec_index_outside_the_poses_gives_nan():
+    """K4's matvec with an edge index outside [0, N) (which PyTorch's
+    gather would refuse): that edge's terms NaN, the others as the order
+    oracle's, with no host sync."""
+    _require_gpu()
+    from visfs_tpu_torch.ops.kernels import edge_products as k4
+
+    rng = np.random.default_rng(9)
+    e, n = 8, 5
+
+    def f32(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+
+    w, Ji, Jj, x = f32(e).abs(), f32(e, 6, 6), f32(e, 6, 6), f32(n, 6)
+    ei = torch.from_numpy(rng.integers(0, n, e))
+    ej = torch.from_numpy(rng.integers(0, n, e))
+    bad_i, bad_j = ei.clone(), ej.clone()
+    bad_i[2], bad_j[5] = n, -1
+    on_card = [t.cuda() for t in (w, Ji, Jj, x, bad_i, bad_j)]
+    with _NoHostSync():
+        out = k4.edge_matvec(*on_card)
+    out = out.cpu()
+    assert bool(torch.isnan(out[[2, 5]]).all())
+    keep = [k for k in range(e) if k not in (2, 5)]
+    want = k4.edge_products_oracle("matvec", w, Ji, Jj, x, ei, ej)
+    assert torch.equal(out[keep].view(torch.int32),
+                       want[keep].view(torch.int32))
+
+
 def test_optimize_graph_default_mode_solves_are_bit_equal():
     """Two optimize_graph solves of one graph with closures on "cuda", with
     PyTorch's deterministic algorithms off before and after: bit-equal,
-    with no host sync; within 1e-4 of the solve on "cpu"."""
+    with no host sync, each per-edge product through K4 and each per-pose
+    sum through K3 (iterations x (cg_iters + 3) launches each); within 1e-4
+    of the solve on "cpu"."""
     _require_gpu()
     from visfs_tpu_torch.slam.mapping import KeyframeGraph, optimize_graph
 
     assert not torch.are_deterministic_algorithms_enabled()
+    from visfs_tpu_torch.ops.kernels import edge_products as k4
+    from visfs_tpu_torch.ops.kernels import segment_sum as k3
+
     g = _graph_with_closures("cuda")
     with _NoHostSync():
+        before = k4.LAUNCHES, k3.LAUNCHES
         a, chi2_a = optimize_graph(g, None, iterations=10, cg_iters=60)
+        launches = k4.LAUNCHES - before[0], k3.LAUNCHES - before[1]
         b, chi2_b = optimize_graph(g, None, iterations=10, cg_iters=60)
     assert not torch.are_deterministic_algorithms_enabled()
+    assert launches == (10 * (60 + 3), 10 * (60 + 3))  # K4, K3
     for f in KeyframeGraph._fields:
         assert torch.equal(getattr(a, f), getattr(b, f)), f
     assert torch.equal(chi2_a, chi2_b)

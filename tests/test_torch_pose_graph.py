@@ -187,10 +187,11 @@ def test_scatter_fixed_order_bit_equal_to_index_add(name, shape, circle,
     w = mask.to(torch.float32).reshape((-1,) + (1,) * len(shape))
     vi, vj = (torch.from_numpy(rng.normal(size=(len(i),) + shape).astype(
         np.float32)) * w for _ in range(2))
-    got = tpg._scatter(n, edges, vi, vj, None)
+    terms = torch.stack((vi, vj), 1)
+    got = tpg._scatter(n, edges, terms, None)
     old = torch.zeros((n,) + shape).index_add_(0, i, vi).index_add_(0, j, vj)
     assert torch.equal(_bits(got), _bits(old))
-    walked = _walk(torch.stack((vi, vj), 1), edges, n)
+    walked = _walk(terms, edges, n)
     assert torch.equal(_bits(walked), _bits(old))
     assert not torch.are_deterministic_algorithms_enabled()
 

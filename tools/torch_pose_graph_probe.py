@@ -4,6 +4,7 @@ backend cell's capacity (128 nodes, 512 edge slots, a drifting chain with
 closures, most slots masked).
 
     python tools/torch_pose_graph_probe.py [--device cuda]
+        [--probes k3,scatter,shards,solve]
 
 Prints one JSON line a probe:
 
@@ -15,11 +16,13 @@ Prints one JSON line a probe:
   * ``solve``: whole ``optimize`` solves (10 Gauss-Newton steps x 60 CG
     steps) with each candidate in place of K3: bits between two solves and
     against K3's solve, host syncs, host ms a solve, kernels a solve;
-  * ``shards``: each aten op of the per-edge terms (``_edge_terms`` and
-    the products the solve sums per pose) on the whole graph and on each
-    block of 2 and of 4 ranks, as ``parallel.mesh.shard`` splits it: the
-    first op whose block output differs in any bit from the whole graph's
-    rows, with its shapes;
+  * ``shards``: each aten op of the per-edge terms (``_edge_terms``, the
+    ``@`` products of ``pose_link_jacobians`` among them) and the products
+    the solve sums per pose (K4, ``ops/kernels/edge_products.py``, as the
+    solve calls it) on the whole graph and on each block of 2, 4 and 8
+    ranks, as ``parallel.mesh.shard`` splits it: the first op whose block
+    output differs in any bit from the whole graph's rows, with its shapes
+    (null: none), and the words differing in each output;
   * ``k3``: K3's device time a launch at both shapes in a torch.profiler
     trace of this fresh process (median of 20).
 
@@ -189,8 +192,8 @@ def probe_solve(device, g):
     rows = []
     for name, fn in [("k3", None)] + list(candidates().items()):
         if fn is not None:
-            tpg._scatter = (lambda f: lambda n, edges, vi, vj, group: f(
-                n, edges.i, edges.j, vi, vj))(fn)
+            tpg._scatter = (lambda f: lambda n, edges, terms, group: f(
+                n, edges.i, edges.j, terms[:, 0], terms[:, 1]))(fn)
         try:
             solve()
             with syncs(device) as found:
@@ -212,19 +215,14 @@ def probe_solve(device, g):
 
 
 def edge_products(g, x):
-    """The per-edge terms a Gauss-Newton step makes and sums per pose, in
-    _gn_step's expressions."""
-    import torch
-
+    """The per-edge terms a Gauss-Newton step makes and sums per pose, as
+    _gn_step makes them (K4 on the card)."""
     import visfs_tpu_torch.parallel.pose_graph as tpg
 
     r, Ji, Jj, w, chi2 = tpg._edge_terms(g, g.pose_q, g.pose_t, 1.0)
-    y = torch.einsum("eki,ei->ek", Ji, x[g.edge_i.long()]) \
-        + torch.einsum("eki,ei->ek", Jj, x[g.edge_j.long()])
-    return [r, Ji, Jj, w, chi2,
-            torch.einsum("e,eki,ek->ei", w, Ji, r),
-            torch.einsum("e,eki,ekj->eij", w, Ji, Ji),
-            torch.einsum("e,eki,ek->ei", w, Jj, y)]
+    return [r, Ji, Jj, w, chi2, tpg.edge_gradient(w, Ji, Jj, r),
+            tpg.edge_blocks(w, Ji, Jj),
+            tpg.edge_matvec(w, Ji, Jj, x, g.edge_i.long(), g.edge_j.long())]
 
 
 def recorded(fn):
@@ -253,7 +251,7 @@ def probe_shards(device, g):
                      device=device)
     whole_ops, whole = recorded(lambda: edge_products(g, x))
     rows = []
-    for world in (2, 4):
+    for world in (2, 4, 8):
         per = N_EDGES // world
         first, outputs_differing = None, [0] * len(whole)
         for rank in range(world):
@@ -277,8 +275,9 @@ def probe_shards(device, g):
                                  whole_op=wname, words_differing=n_diff)
         rows.append(dict(world=world, edges_a_rank=per,
                          first_differing_op=first,
-                         outputs=["r", "Ji", "Jj", "w", "chi2", "w Ji^T r",
-                                  "w Ji^T Ji", "w Jj^T y"],
+                         outputs=["r", "Ji", "Jj", "w", "chi2",
+                                  "w J^T r (K4)", "w J^T J (K4)",
+                                  "w J^T y (K4)"],
                          words_differing_per_output=outputs_differing))
     return rows
 
@@ -315,20 +314,23 @@ def probe_k3(device):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--probes", default="k3,scatter,shards,solve",
+                    help="the probes to run, comma-separated")
     args = ap.parse_args()
+    probes = args.probes.split(",")
     import torch
 
     torch.manual_seed(0)
     if args.device == "cuda":
         print(torch.cuda.get_device_name(0), flush=True)
     g = probe_graph(args.device)
-    print(json.dumps({"k3": probe_k3(args.device)}), flush=True)
-    for row in probe_scatter(args.device, g):
-        print(json.dumps({"scatter": row}), flush=True)
-    for row in probe_shards(args.device, g):
-        print(json.dumps({"shards": row}), flush=True)
-    for row in probe_solve(args.device, g):
-        print(json.dumps({"solve": row}), flush=True)
+    if "k3" in probes:
+        print(json.dumps({"k3": probe_k3(args.device)}), flush=True)
+    for name, probe in (("scatter", probe_scatter), ("shards", probe_shards),
+                        ("solve", probe_solve)):
+        if name in probes:
+            for row in probe(args.device, g):
+                print(json.dumps({name: row}), flush=True)
 
 
 if __name__ == "__main__":

@@ -4,12 +4,12 @@ package's ``__graft_entry__.dryrun_multichip``), at full width.
     python -m visfs_tpu_torch.multichip --world N [--device cuda|cpu]
         [--width 640 --height 480] [--frames 40] [--robot-frames 240/N]
 
-The parent builds K1 (on the card), renders the three scenes into the sim
-cache unless they are there (chip_smoke.py's renders), then spawns N ranks
-on a free localhost port: one card a rank over NCCL, each rank calling
-``torch.cuda.set_device(rank)`` before it builds any state, or with
-``--device cpu`` gloo ranks on the CPU.  The ranks run, in the dryrun's
-order:
+The parent builds K1, K3 and K4 (on the card), renders the three scenes
+into the sim cache unless they are there (chip_smoke.py's renders), then
+spawns N ranks on a free localhost port: one card a rank over NCCL, each
+rank calling ``torch.cuda.set_device(rank)`` before it builds any state,
+or with ``--device cpu`` gloo ranks on the CPU.  The ranks run, in the
+dryrun's order:
 
   a. ``dp_fleet_step`` at SensorStrategy 0: the bench parameters on the
      300-frame bench loop, rank r the stream at frame (r * 7) mod 260 with
@@ -34,22 +34,21 @@ timed frame and 0 of every other kernel entry, 0 host syncs in the timed
 loop (on the card), each rank's ATE <= 0.15 m and 0 lost over frames 2..;
 in b also phase s3's map gate on each rank's submaps.  In c the keyframe
 counts, node poses, edge lists and accepted closures identical to
-``MultiRobotMapping``'s, the poses after ``optimize`` within 1e-4 m and
-1e-4 rad of its; on every rank two sharded solves of the fleet's graph
-bit-equal, two one-rank solves of it bit-equal, and the sharded solve
-within 1e-4 m and 1e-4 rad of the one-rank solve (every solve in PyTorch's
-default mode: the pose graph adds each pose's terms in one fixed order,
-and the sharded solve adds the gathered per-edge terms in the one-rank
-order; a rank makes its own edges' terms, and on an H100 the batched
-matrix-vector product (aten.bmm) that torch.einsum makes of a 128-edge
-shard's Jacobians and residuals rounds otherwise than the same rows of
-the 512-edge graph's, where 256-edge shards' do not, as
-tools/torch_pose_graph_probe.py shows; so that gap is printed: bit-equal
-at 2 ranks, 4.8e-6 m at 4), >= 1 cross-robot closure when N >= 2, every
-rank holding the same graph, 0 host syncs in one ``verify_loop`` and in
-one solve (on the card; no verify_loop call fails it).  In d poses
-within 1e-5 and landmarks within 2.1e-4 m (tests/test_torch_distributed.
-py's bounds), ok, every rank the same.
+``MultiRobotMapping``'s, and its poses and chi2 after ``optimize`` bit for
+bit; on every rank two sharded solves of the fleet's graph bit-equal, two
+one-rank solves of it bit-equal, and the sharded solve bit-equal to the
+one-rank solve, poses and chi2 (every solve in PyTorch's default mode: a
+rank makes its edges' terms in the CPU einsum's order whatever the
+shard's size, K4, ``ops/kernels/edge_products.py``; the sharded solve
+adds the gathered per-edge terms in the one-rank order, and each pose's
+terms in one fixed order, K3); their gaps in m and rad are printed
+beside; >= 1 cross-robot closure when N >= 2, every rank holding the
+same graph, 0 host syncs in one ``verify_loop`` and in one solve (on the
+card; no verify_loop call fails it).  In d the edge-sharded pose graph's
+poses and chi2 bit-equal to the one-rank solve's; the landmark-sharded
+BA, which psums partial sums as the reference does, poses within 1e-5
+and landmarks within 2.1e-4 m of the one-rank solve
+(tests/test_torch_distributed.py's bounds); ok, every rank the same.
 Printed, not gated: the aggregate fps of a and b, the gather's device ms a
 frame (CUDA events around ``gather_stacked``), the close-and-solve seconds.
 
@@ -89,8 +88,7 @@ S3_SYSTEM = dict(scan_capacity=256, submap_extent_cells=256)  # phase s3's
 BACKEND_SESSION = dict(max_nodes=128, max_edges=512, snapshot_kp=48)
 BACKEND_LOOPS = dict(radius=2.5, min_gap=8, min_inliers=10)
 BACKEND_SOLVE = dict(iterations=10, cg_iters=60)
-GRAPH_POSE_BOUND = 1e-4  # c: the solves against one process's
-SOLVER_POSE_BOUND = 1e-5  # d: tests/test_torch_distributed.py's bounds
+SOLVER_POSE_BOUND = 1e-5  # d, the BA: tests/test_torch_distributed.py's
 LANDMARK_BOUND = 2.1e-4
 # the kernel entries, K1's and K2's, with the counter each wrapper keeps
 ENTRIES = {"lk_pyramid": ("lk_level", "PYR_LAUNCHES"),
@@ -168,6 +166,24 @@ def rel_gap(a, b):
     d = np.linalg.norm(a[:3, :3] - b[:3, :3]) / (2.0 * np.sqrt(2.0))
     return (float(np.abs(a[:3, 3] - b[:3, 3]).max()),
             float(2.0 * np.arcsin(min(d, 1.0))))
+
+
+def words_differing(a, b):
+    """The 32-bit words in which two float32 arrays differ (inf when their
+    shapes do): 0 is bit-equal, signed zeros and NaN payloads included."""
+    a = np.ascontiguousarray(a, np.float32)
+    b = np.ascontiguousarray(b, np.float32)
+    if a.shape != b.shape:
+        return float("inf")
+    return int((a.view(np.int32) != b.view(np.int32)).sum())
+
+
+def solve_words(a, b):
+    """words_differing over two solves' (graph, chi2): pose_q, pose_t and
+    chi2."""
+    (ga, ca), (gb, cb) = a, b
+    return sum(words_differing(x.cpu(), y.cpu()) for x, y in (
+        (ga.pose_q, gb.pose_q), (ga.pose_t, gb.pose_t), (ca, cb)))
 
 
 def same(a, b) -> bool:
@@ -448,6 +464,8 @@ def session_result(session, close, solve, extra=None):
     out["chi2"] = solve()
     out["solve_s"] = time.perf_counter() - t0
     out["optimized"] = session.poses()
+    g = session.backend.graph
+    out["optimized_qt"] = [g.pose_q.cpu().numpy(), g.pose_t.cpu().numpy()]
     return out
 
 
@@ -504,9 +522,10 @@ def run_mapping(group, dev, seq, params, robot_frames):
 
     def probes():
         """Host syncs in one verify_loop call and in one sharded solve
-        (every rank takes part in its collectives); that solve's gap to a
-        second sharded solve and to the one-rank solve of the same graph on
-        this card, and between two one-rank solves."""
+        (every rank takes part in its collectives); the words in which that
+        solve differs from a second sharded solve and from the one-rank
+        solve of the same graph on this card, and two one-rank solves from
+        each other (poses and chi2), with the gaps in m and rad."""
         found = {}
         if calls:
             with host_syncs(dev) as syncs:
@@ -515,18 +534,19 @@ def run_mapping(group, dev, seq, params, robot_frames):
             found["verify_syncs"] = syncs
         graph = fm.backend.graph
         with host_syncs(dev) as syncs:
-            sharded, _ = mapping.optimize_graph(graph, fm.backend.mesh,
-                                                **BACKEND_SOLVE)
+            sharded = mapping.optimize_graph(graph, fm.backend.mesh,
+                                             **BACKEND_SOLVE)
         _sync(dev)
         found = {k: None if v is None else len(v)
                  for k, v in dict(found, solve_syncs=syncs).items()}
-        again, _ = mapping.optimize_graph(graph, fm.backend.mesh,
-                                          **BACKEND_SOLVE)
-        one = [mapping.optimize_graph(graph, None, **BACKEND_SOLVE)[0]
+        again = mapping.optimize_graph(graph, fm.backend.mesh,
+                                       **BACKEND_SOLVE)
+        one = [mapping.optimize_graph(graph, None, **BACKEND_SOLVE)
                for _ in range(2)]
-        found.update(sharded_gap=graph_gap(sharded, one[0]),
-                     sharded_repeat_gap=graph_gap(sharded, again),
-                     one_rank_repeat_gap=graph_gap(one[0], one[1]))
+        found.update(sharded_words=solve_words(sharded, one[0]),
+                     sharded_repeat_words=solve_words(sharded, again),
+                     one_rank_repeat_words=solve_words(*one),
+                     sharded_gap=graph_gap(sharded[0], one[0][0]))
         return found
 
     out = session_result(fm, close,
@@ -759,8 +779,11 @@ def _stream_gates(ranks, world, counted):
 
 def _mapping_gates(ranks, world):
     ref = ranks[0]["reference"]
-    gaps = []
+    gaps, words = [], []
     for r in ranks:
+        words.append(sum(words_differing(a, b) for a, b in zip(
+            r["optimized_qt"], ref["optimized_qt"]))
+            + words_differing(r["chi2"], ref["chi2"]))
         got = r["optimized"]
         if len(got) != len(ref["optimized"]):
             gaps.append((np.inf, np.inf))
@@ -776,15 +799,13 @@ def _mapping_gates(ranks, world):
             and r["edges_before"] == ref["edges_before"]
             and r["added"] == ref["added"] and r["edges"] == ref["edges"]
             and r["cross"] == ref["cross"] for r in ranks),
-        f"poses after optimize within {GRAPH_POSE_BOUND} m and rad": all(
-            t <= GRAPH_POSE_BOUND and a <= GRAPH_POSE_BOUND
-            for t, a in gaps),
+        "poses and chi2 after optimize bit-equal to MultiRobotMapping's":
+        all(w == 0 for w in words),
         "two sharded solves bit-equal, two one-rank solves bit-equal": all(
-            r["sharded_repeat_gap"] == (0.0, 0.0)
-            and r["one_rank_repeat_gap"] == (0.0, 0.0) for r in ranks),
-        f"the sharded solve within {GRAPH_POSE_BOUND} m and rad of the "
-        f"one-rank solve": all(
-            max(r["sharded_gap"]) <= GRAPH_POSE_BOUND for r in ranks),
+            r["sharded_repeat_words"] == 0
+            and r["one_rank_repeat_words"] == 0 for r in ranks),
+        "the sharded solve bit-equal to the one-rank solve": all(
+            r["sharded_words"] == 0 for r in ranks),
         "every rank holds the same graph": all(
             same(r["optimized"], ranks[0]["optimized"])
             and r["edges"] == ranks[0]["edges"] for r in ranks),
@@ -804,10 +825,12 @@ def _mapping_gates(ranks, world):
              == ref["measurements"].shape else float("inf")) for m in meas),
         sharded_vs_one_rank_solve=[max(r["sharded_gap"][i] for r in ranks)
                                    for i in range(2)],
-        sharded_solve_repeat=[max(r["sharded_repeat_gap"][i]
-                                  for r in ranks) for i in range(2)],
-        one_rank_solve_repeat=[max(r["one_rank_repeat_gap"][i]
-                                   for r in ranks) for i in range(2)],
+        sharded_vs_one_rank_words=[r["sharded_words"] for r in ranks],
+        sharded_solve_repeat_words=[r["sharded_repeat_words"]
+                                    for r in ranks],
+        one_rank_solve_repeat_words=[r["one_rank_repeat_words"]
+                                     for r in ranks],
+        words_differing_from_multi_robot_mapping=words,
         offsets=ranks[0]["offsets"], frames_a_robot=ranks[0]["frames"],
         keyframes=ranks[0]["keyframes"], reference_keyframes=ref[
             "keyframes"], closures=ranks[0]["added"],
@@ -829,10 +852,14 @@ def _solver_gates(ranks):
     gap = {k: max(float(np.abs(r["sharded"][k] - r["one_rank"][k]).max())
                   for r in ranks)
            for k in ("graph_q", "graph_t", "ba_q", "ba_t", "ba_lm")}
+    graph_words = [sum(words_differing(r["sharded"][k], r["one_rank"][k])
+                       for k in ("graph_q", "graph_t", "graph_chi2"))
+                   for r in ranks]
     gates = {
-        f"poses within {SOLVER_POSE_BOUND} of the one-rank solve": all(
-            gap[k] <= SOLVER_POSE_BOUND
-            for k in ("graph_q", "graph_t", "ba_q", "ba_t")),
+        "the pose graph's poses and chi2 bit-equal to the one-rank solve's":
+        all(w == 0 for w in graph_words),
+        f"the BA's poses within {SOLVER_POSE_BOUND} of the one-rank solve":
+        all(gap[k] <= SOLVER_POSE_BOUND for k in ("ba_q", "ba_t")),
         f"landmarks within {LANDMARK_BOUND} m": gap["ba_lm"]
         <= LANDMARK_BOUND,
         "ok, outliers identical, chi2 finite": all(
@@ -844,7 +871,8 @@ def _solver_gates(ranks):
             same(r["sharded"][k], ranks[0]["sharded"][k])
             for r in ranks for k in ranks[0]["sharded"]),
     }
-    return gates, {f"max_gap_{k}": v for k, v in gap.items()}
+    return gates, dict({f"max_gap_{k}": v for k, v in gap.items()},
+                       graph_words_differing=graph_words)
 
 
 def nvidia_smi():
@@ -860,7 +888,7 @@ def run(world, device="cuda", width=640, height=480, frames=40,
     section; returns the report (its "ok" says whether every gate
     held)."""
     from .io.sim import cached_textured_sequence, sim_cache_file
-    from .ops.kernels import lk_level
+    from .ops.kernels import edge_products, lk_level, segment_sum
 
     log = functools.partial(print, flush=True)
     if world < 1:
@@ -883,12 +911,13 @@ def run(world, device="cuda", width=640, height=480, frames=40,
                          f"[1, {BACKEND_FRAMES // world}]")
     cache_dir = str(cache_dir or _build.BUILD_DIR.parent / "sim_cache")
     t0 = time.perf_counter()
-    if device == "cuda":
-        lk_level.build()  # once here, not once a rank
+    if device == "cuda":  # once here, not once a rank
+        for kernel in (lk_level, segment_sum, edge_products):
+            kernel.build()
     for kw in scenes(width, height).values():
         if not os.path.exists(sim_cache_file(cache_dir, **kw)):
             cached_textured_sequence(cache_dir=cache_dir, device=device, **kw)
-    log(f"multichip: K1 built and the scenes in the cache in "
+    log(f"multichip: K1, K3 and K4 built and the scenes in the cache in "
         f"{time.perf_counter() - t0:.1f} s; {world} rank(s) on {device} "
         f"({'NCCL, one card a rank' if device == 'cuda' else 'gloo'}), "
         f"{width}x{height}, {frames} frames in a and b, {robot_frames} a "

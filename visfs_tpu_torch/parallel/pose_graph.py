@@ -26,13 +26,15 @@ Where the reference psums each rank's per-pose partial sums (the
 gradient, the preconditioner, every CG matvec, chi2), each rank here
 all-gathers the ranks' per-edge terms (one ``all_gather`` a scatter,
 skipped for a mesh of one) and adds all of them in the one-rank solve's
-order: a sum of partials would associate a pose's terms differently.  So
-the sharded solve equals the one-rank solve wherever the ranks' per-edge
-terms equal the whole graph's: on the CPU, and on an H100 at 256 edges a
-rank; at 128 the batched matrix-vector product (aten.bmm) that
-torch.einsum makes of w J^T r rounds otherwise than for the 512-edge
-graph (tools/torch_pose_graph_probe.py).  The loops run a fixed count
-with no data-dependent exit.
+order: a sum of partials would associate a pose's terms differently.  A
+rank makes its edges' terms (w J^T r, w J^T J, w J^T y) through
+``ops/kernels/edge_products.py``: on the card a kernel computes each
+element in the CPU einsum's order whatever the shard's size (the einsum's
+batched product on the card rounds by the batch: a 128-edge shard's terms
+differed in their last bits from the 512-edge graph's rows); on the CPU
+the einsums.  So the sharded solve equals the one-rank solve bit for bit,
+on the CPU and on the card.  The loops run a fixed count with no
+data-dependent exit.
 """
 
 from __future__ import annotations
@@ -41,6 +43,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..ops.kernels.edge_products import (edge_blocks, edge_gradient,
+                                         edge_matvec)
 from ..ops.kernels.segment_sum import Segments, segment_sum, segments
 from ..solver.factors import (apply_tangent, huber_weight,
                               pose_link_jacobians, pose_link_residual,
@@ -75,11 +79,11 @@ def _edge_terms(g: PoseGraph, pose_q, pose_t, huber_delta):
     return r, Ji, Jj, w, chi2
 
 
-def _scatter(n: int, edges: Segments, vi, vj, group):
-    """Per-pose sums of the edges' from- and to-side terms: the ranks'
-    terms gathered in edge order, then added on every rank in the fixed
-    order."""
-    return segment_sum(all_gather(torch.stack((vi, vj), 1), group), edges, n)
+def _scatter(n: int, edges: Segments, terms, group):
+    """Per-pose sums of the edges' stacked [E, 2, ...] from- and to-side
+    terms: the ranks' terms gathered in edge order, then added on every
+    rank in the fixed order."""
+    return segment_sum(all_gather(terms, group), edges, n)
 
 
 def _shard_edges(graph: PoseGraph, mesh: Optional[Mesh]):
@@ -105,23 +109,20 @@ def _gn_step(g: PoseGraph, edges: Segments, group, huber_delta, lam,
     total_chi2 = torch.sum(all_gather(chi2 * g.edge_mask.to(dtype), group))
 
     # gradient b = -J^T W r, summed per pose over every rank's edges
-    b = _scatter(N, edges, -torch.einsum("e,eki,ek->ei", w, Ji, r),
-                 -torch.einsum("e,eki,ek->ei", w, Jj, r), group) * free
+    b = _scatter(N, edges, -edge_gradient(w, Ji, Jj, r), group) * free
 
     # block-Jacobi preconditioner: the 6x6 diagonal blocks of H
-    M = _scatter(N, edges, torch.einsum("e,eki,ekj->eij", w, Ji, Ji),
-                 torch.einsum("e,eki,ekj->eij", w, Jj, Jj), group)
+    M = _scatter(N, edges, edge_blocks(w, Ji, Jj), group)
     eye6 = torch.eye(6, dtype=dtype, device=M.device)
     M = M + (lam + 1e-6) * eye6
     # the blocks are SPD: M^-1's columns by the closed-form 6x6 solve
     M_inv = solve6x6_spd(M[:, None], eye6.expand(N, 6, 6))
 
     def matvec(x):
-        """H x with H = J^T W J (+ lam I), matrix-free over edges."""
-        y = torch.einsum("eki,ei->ek", Ji, x[g.edge_i]) \
-            + torch.einsum("eki,ei->ek", Jj, x[g.edge_j])  # [E, 6] = J_e x
-        z = _scatter(N, edges, torch.einsum("e,eki,ek->ei", w, Ji, y),
-                     torch.einsum("e,eki,ek->ei", w, Jj, y), group)
+        """H x with H = J^T W J (+ lam I), matrix-free over edges (J_e x
+        made inside edge_matvec)."""
+        z = _scatter(N, edges, edge_matvec(w, Ji, Jj, x, g.edge_i, g.edge_j),
+                     group)
         return (z + lam * x) * free
 
     def precond(x):
