@@ -120,21 +120,14 @@ def test_laser_scan_to_points_matches_reference():
 
 def test_stage_timer():
     t = timer.StageTimer()
+    time.sleep(0.01)
+    before = time.perf_counter()
+    assert t.elapsed() >= 0.0099  # since construction
     x = torch.ones(64, 64)
-    with t.stage("matmul") as holder:
-        holder["sync"] = (x @ x, [x])
-    with t.stage("sleep"):
-        time.sleep(0.01)
-    t.restart()
-    dt = t.elapsed("tagged", sync=x * 2)
-    assert dt >= 0.0 and t.elapsed() >= 0.0
-    s = t.summary()
-    assert set(s) == {"matmul", "sleep", "tagged"}
-    assert s["sleep"]["count"] == 1 and s["sleep"]["mean_ms"] >= 9.0
-    assert s["sleep"]["max_ms"] == s["sleep"]["mean_ms"]
-    assert timer.memory_usage_mb() > 0.0
-    if not torch.cuda.is_available():
-        assert timer.device_memory_stats() == {}
+    dt = t.elapsed(sync=(x @ x, [x * 2]))
+    assert 0.0 <= dt <= time.perf_counter() - before  # restarted
+    time.sleep(0.01)
+    assert t.elapsed(sync=x) >= 0.0099
 
 
 def test_device_trace_writes_a_trace(tmp_path):

@@ -18,11 +18,18 @@ state and its submap updates, which the reference keeps out of its vmap.
 instead (``torch.distributed``), each rank the plain ``vo_step`` on its own
 stream at any strategy, and gathers the frame outputs into [B] on every
 rank, as the reference's single controller sees them from its ``dp`` mesh.
+
+With the span recorder on (``utils.timer.enable``) a fleet frame records
+``fleet.input`` around ``input_primary_sensor_data``, with a frame id from
+the FleetSystem's own counter, over ``vo_step``'s four stage spans, and
+``fleet.output`` around the take of its result (the stack, the copy to the
+host and the wait for the card).
 """
 
 from __future__ import annotations
 
 import collections
+import itertools
 from typing import Optional
 
 import numpy as np
@@ -33,6 +40,7 @@ from ..config import VISFSConfig, config_from_parameters
 from ..core.camera import StereoCamera, make_stereo_camera
 from ..ops.lk import LKParams, lk_pad
 from ..parallel.mesh import gather_stacked
+from ..utils.timer import span
 from . import extrapolator as extr
 from .state import FrameOutput, VOState, init_state
 from .system import _build_settings, build_cfg_hash, vo_step
@@ -145,7 +153,8 @@ class FleetSystem:
         self._seed = seed
         self.camera: Optional[StereoCamera] = None
         self.states: Optional[VOState] = None  # leading [B] axis throughout
-        self._results = collections.deque()
+        self._results = collections.deque()  # (frame id, FrameOutput)
+        self._frame_ids = itertools.count()  # the spans' frame ids
 
     def init(self, fx, fy, cx, cy, baseline, *, width, height, fxr=None,
              fyr=None, cxr=None, cyr=None, transform_camera_to_robot=None):
@@ -181,11 +190,13 @@ class FleetSystem:
         the [B]-batched result is queued on the device."""
         if self.states is None:
             raise RuntimeError("call init() first")
-        self.states, out = fleet_step(
-            self.states, self._to_device(lefts), self._to_device(rights),
-            self._to_device(stamps), self.camera, self.settings,
-            self.lk_params, self._cfg_hash)
-        self._results.append(out)
+        frame = next(self._frame_ids)
+        with span("fleet.input", frame):
+            self.states, out = fleet_step(
+                self.states, self._to_device(lefts), self._to_device(rights),
+                self._to_device(stamps), self.camera, self.settings,
+                self.lk_params, self._cfg_hash)
+            self._results.append((frame, out))
 
     def input_wheel_odometry(self, stamps, pose6, velocity6=None,
                              valid=None):
@@ -210,13 +221,15 @@ class FleetSystem:
     def output_odometry_info(self):
         """Pop the oldest finished fleet result (a FrameOutput of [B]
         numpy fields), or None."""
-        if self._results:
-            return fleet_outputs_to_numpy([self._results.popleft()])[0]
-        return None
+        if not self._results:
+            return None
+        frame, out = self._results.popleft()
+        with span("fleet.output", frame):
+            return fleet_outputs_to_numpy([out])[0]
 
     def drain_outputs(self):
         """Fetch every queued fleet result, one transfer per field."""
-        outs = list(self._results)
+        outs = [out for _, out in self._results]
         self._results.clear()
         return fleet_outputs_to_numpy(outs)
 

@@ -9,7 +9,12 @@ graph.  Results stay on the device until ``output_odometry_info`` or
 ``drain_outputs`` fetches them.  ``System(profile_stages=True)`` runs the
 same four stage functions with a device synchronisation after each, and
 fills FrameOutput's ``time_*`` fields from the host clock (the reference's
-per-thread stage timers); the fused step leaves them 0.
+per-thread stage timers); the fused step leaves them 0.  With the span
+recorder on (``utils.timer.enable``), ``vo_step`` and the profiled path
+record the four stages as the host spans ``STAGES`` (under
+``torch.func.vmap`` once per fleet frame), and ``System`` records
+``system.input`` and ``system.output`` around its feed and its take, both
+with the frame's id from a counter on the System.
 
 Host API (reference System.h:30-53): ``init``, ``input_primary_sensor_data``
 (the stereo pair, or at SensorStrategy 1 the image and its depth map in
@@ -36,6 +41,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 import threading
 from typing import NamedTuple, Optional
 
@@ -51,7 +57,7 @@ from ..ops.lk import LKParams, lk_pad
 from ..ops.pnp import PnPSettings
 from ..solver import ba as ba_mod
 from ..solver.ba import BASettings
-from ..utils.timer import StageTimer
+from ..utils.timer import StageTimer, span
 from . import extrapolator as extr
 from .estimator import (EstimatorSettings, estimator_finalize,
                         estimator_prepare, marginalize)
@@ -216,6 +222,11 @@ def finalize_stage(state: VOState, ts: TrackStage, ctx, res_ba, stamp,
     return new_state, out
 
 
+# The host spans of the step's four stages, in the order ``vo_step`` opens
+# them; tools put device operations under them with ``utils.timer.attribute``.
+STAGES = ("step.track", "step.prepare", "step.ba", "step.finalize")
+
+
 def vo_step(state: VOState, left, right, stamp, cam: StereoCamera,
             cfg_est: EstimatorSettings, lk_params: LKParams,
             cfg_hash: tuple, scan_points=None, scan_mask=None,
@@ -223,12 +234,16 @@ def vo_step(state: VOState, left, right, stamp, cam: StereoCamera,
     """The fused step: track -> prepare -> BA -> finalize; scan_points [K,
     3] laser-frame, scan_mask [K] and scan_times [K] at strategies >= 3.
     Returns (new VOState, FrameOutput)."""
-    ts = track_stage(state, left, right, stamp, cam, cfg_est, lk_params,
-                     cfg_hash)
-    problem, ctx = prepare_stage(state, ts, stamp, cam, cfg_est, scan_points,
-                                 scan_mask, scan_times)
-    res_ba = ba_stage(problem, cfg_est)
-    return finalize_stage(state, ts, ctx, res_ba, stamp, cam, cfg_est)
+    with span(STAGES[0]):
+        ts = track_stage(state, left, right, stamp, cam, cfg_est, lk_params,
+                         cfg_hash)
+    with span(STAGES[1]):
+        problem, ctx = prepare_stage(state, ts, stamp, cam, cfg_est,
+                                     scan_points, scan_mask, scan_times)
+    with span(STAGES[2]):
+        res_ba = ba_stage(problem, cfg_est)
+    with span(STAGES[3]):
+        return finalize_stage(state, ts, ctx, res_ba, stamp, cam, cfg_est)
 
 
 def _outputs_to_numpy(outs):
@@ -286,7 +301,8 @@ class System:
         self._submap_extent = submap_extent_cells
         self.camera: Optional[StereoCamera] = None
         self._state: Optional[VOState] = None
-        self._results = collections.deque()
+        self._results = collections.deque()  # (frame id, FrameOutput)
+        self._frame_ids = itertools.count()  # the spans' frame ids
         # held by the step and by every read or write of ``state``
         self._state_lock = threading.Lock()
         # host wheel rows [K, 14] not yet in the state, in push order
@@ -408,43 +424,52 @@ class System:
         the device."""
         if self._state is None:
             raise RuntimeError("call init() first")
-        stamp_t = torch.full((), float(stamp), dtype=torch.float32,
-                             device=self.device)
-        scan_args = {}
-        if self.cfg.system_sensor_strategy >= 3:
-            pts, msk, tms = self._scan_inputs(scan, scan_times)
-            scan_args = dict(scan_points=pts, scan_mask=msk, scan_times=tms)
-        args = (self._as_image(left), self._as_image(right), stamp_t)
-        with self._state_lock:
-            self._apply_pending_odometry(upto=np.float32(stamp))
-            if self.profile_stages:
-                out = self._step_profiled(*args, **scan_args)
-            else:
-                self._state, out = vo_step(self._state, *args, self.camera,
-                                           self.settings, self.lk_params,
-                                           self._cfg_hash, **scan_args)
-            self._results.append(out)
+        frame = next(self._frame_ids)
+        with span("system.input", frame):
+            stamp_t = torch.full((), float(stamp), dtype=torch.float32,
+                                 device=self.device)
+            scan_args = {}
+            if self.cfg.system_sensor_strategy >= 3:
+                pts, msk, tms = self._scan_inputs(scan, scan_times)
+                scan_args = dict(scan_points=pts, scan_mask=msk,
+                                 scan_times=tms)
+            args = (self._as_image(left), self._as_image(right), stamp_t)
+            with self._state_lock:
+                self._apply_pending_odometry(upto=np.float32(stamp))
+                if self.profile_stages:
+                    out = self._step_profiled(*args, **scan_args)
+                else:
+                    self._state, out = vo_step(
+                        self._state, *args, self.camera, self.settings,
+                        self.lk_params, self._cfg_hash, **scan_args)
+                self._results.append((frame, out))
 
     def _step_profiled(self, left, right, stamp, scan_points=None,
                        scan_mask=None, scan_times=None):
         """The step's four stages, each waited for, with their host wall
-        times (s) in the output's time_* fields.  ``stamp`` lies on the
+        times (s) in the output's time_* fields; each in its stage span, as
+        in ``vo_step``, the wait included.  ``stamp`` lies on the
         System's device, so waiting for it waits for all the device's
         work."""
         cam, cfg = self.camera, self.settings
         timer = StageTimer()
         timer.elapsed(sync=stamp)  # the earlier frames' work is not timed
-        ts = track_stage(self._state, left, right, stamp, cam, cfg,
-                         self.lk_params, self._cfg_hash)
-        t_track = timer.elapsed(sync=stamp)
-        problem, ctx = prepare_stage(self._state, ts, stamp, cam, cfg,
-                                     scan_points, scan_mask, scan_times)
-        t_prepare = timer.elapsed(sync=stamp)
-        res_ba = ba_stage(problem, cfg)
-        t_ba = timer.elapsed(sync=stamp)
-        self._state, out = finalize_stage(self._state, ts, ctx, res_ba,
-                                          stamp, cam, cfg)
-        t_estimation = t_prepare + t_ba + timer.elapsed(sync=stamp)
+        with span(STAGES[0]):
+            ts = track_stage(self._state, left, right, stamp, cam, cfg,
+                             self.lk_params, self._cfg_hash)
+            t_track = timer.elapsed(sync=stamp)
+        with span(STAGES[1]):
+            problem, ctx = prepare_stage(self._state, ts, stamp, cam, cfg,
+                                         scan_points, scan_mask, scan_times)
+            t_prepare = timer.elapsed(sync=stamp)
+        with span(STAGES[2]):
+            res_ba = ba_stage(problem, cfg)
+            t_ba = timer.elapsed(sync=stamp)
+        with span(STAGES[3]):
+            self._state, out = finalize_stage(self._state, ts, ctx, res_ba,
+                                              stamp, cam, cfg)
+            t_finalize = timer.elapsed(sync=stamp)
+        t_estimation = t_prepare + t_ba + t_finalize
         return out._replace(time_tracking=np.float32(t_track),
                             time_estimation=np.float32(t_estimation),
                             local_bundle_time=np.float32(t_ba),
@@ -479,9 +504,11 @@ class System:
 
     def output_odometry_info(self):
         """Pop the oldest finished frame result (numpy fields), or None."""
-        if self._results:
-            return _outputs_to_numpy([self._results.popleft()])[0]
-        return None
+        if not self._results:
+            return None
+        frame, out = self._results.popleft()
+        with span("system.output", frame):
+            return _outputs_to_numpy([out])[0]
 
     def keyframe_snapshot(self, max_kp: int = 64, patch_size: int = 8,
                           scales: tuple = (1, 3, 6)):
@@ -500,7 +527,7 @@ class System:
         the worker appends meanwhile is kept for the next call)."""
         outs = []
         while self._results:
-            outs.append(self._results.popleft())
+            outs.append(self._results.popleft()[1])
         return _outputs_to_numpy(outs)
 
     def run_sequence(self, stamps, lefts, rights, wheel_odom=None,
